@@ -1,0 +1,61 @@
+"""Carrying weights over from the JAX package.
+
+The JAX package keeps params as a pytree of nested dicts and tuples, with
+dense layers as ``{"w": (in, out), "b": (out,)}`` (dpivae_tpu/models/nn.py:
+25-36). This package keeps them in ``nn.Linear`` modules, weight (out, in).
+``params_from_jax`` maps one onto the other; it takes the pytree with
+numpy leaves (``jax.tree.map(np.asarray, params)``) and imports no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from dpivae_tpu_torch.models.vae import DPIVAE, DPIVAEParams
+from dpivae_tpu_torch.utils import DeviceLike
+
+
+def state_dict_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """Flatten a JAX params pytree into this package's state-dict names:
+    dict keys and tuple indices join with "."; a dense layer's "w"/"b"
+    become "weight" (transposed to (out, in)) and "bias"."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            if set(node) == {"w", "b"}:
+                w = np.asarray(node["w"])
+                if w.ndim != 2:
+                    raise NotImplementedError(
+                        f"{prefix}w has {w.ndim} dims; only dense layers "
+                        f"convert so far"
+                    )
+                flat[prefix + "weight"] = tensor(w.T)
+                flat[prefix + "bias"] = tensor(node["b"])
+                return
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            flat[prefix[:-1]] = tensor(node)
+
+    walk(tree, "")
+    return flat
+
+
+def params_from_jax(model: DPIVAE, tree,
+                    device: DeviceLike = None) -> DPIVAEParams:
+    """The params of ``model`` (on ``device``, None meaning CUDA) loaded
+    from a JAX params pytree. Every entry must match by name and shape,
+    both ways."""
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    params.load_state_dict(state_dict_from_jax(tree), strict=True)
+    return params

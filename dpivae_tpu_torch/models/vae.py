@@ -1,0 +1,276 @@
+"""DPIVAE: the physics-informed adversarially-disentangled VAE (counterpart
+of dpivae_tpu/models/vae.py:110-318,468-478).
+
+``DPIVAE`` is a static configuration object, as in the JAX package; the
+trainable state is a ``DPIVAEParams`` module with one submodule per
+optimizer group::
+
+    encoder, prior_net_c, prior_net_y, decoder_x, decoder_c, decoder_y,
+    log_sigma_x
+
+Randomness is explicit: ``sample``/``forward``/``encode`` take a
+``torch.Generator``, or a ``noise`` mapping of ready-made standard normals
+(the seam through which tests hand in the JAX package's exact draws).
+
+Ported so far: the S model's sampling path. Not yet: the training loss
+(``loss`` and its MC-chunked form), the P model, the CNN encoder,
+``compute_dtype="bfloat16"`` and ``remat_decode``; each raises
+``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from dpivae_tpu_torch.models.decoders import (
+    DECODER_X_HIDDEN,
+    GaussianDecoder,
+    GradRevAdditiveDecoder,
+)
+from dpivae_tpu_torch.models.encoders import (
+    FactorizedNN,
+    FullCovNN,
+    gaussian_encoder_sample,
+)
+from dpivae_tpu_torch.utils import DeviceLike, randn, resolve_device
+from dpivae_tpu_torch.utils.distributions import MarginalDistribution
+
+Noise = Optional[Mapping[str, torch.Tensor]]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to dpivae_tpu_torch yet (ROADMAP.md, {item})"
+    )
+
+
+def _normal(noise: Noise, name: str, shape, generator, like: torch.Tensor):
+    """Standard normals of ``shape``: ``noise[name]`` when a noise mapping is
+    given, else drawn from ``generator``."""
+    if noise is None:
+        return randn(shape, generator, like.device, like.dtype)
+    eps = noise[name]
+    if tuple(eps.shape) != tuple(shape):
+        raise ValueError(
+            f"noise[{name!r}] has shape {tuple(eps.shape)}, expected "
+            f"{tuple(shape)}"
+        )
+    return eps.to(device=like.device, dtype=like.dtype)
+
+
+class DPIVAEParams(nn.Module):
+    """The trainable state of a DPIVAE, one submodule per optimizer group."""
+
+    def __init__(self, encoder: nn.Module, prior_net_c: nn.Module,
+                 prior_net_y: nn.Module, decoder_x: GradRevAdditiveDecoder,
+                 decoder_c: GaussianDecoder, decoder_y: GaussianDecoder,
+                 log_sigma_x: torch.Tensor):
+        super().__init__()
+        self.encoder = encoder
+        self.prior_net_c = prior_net_c
+        self.prior_net_y = prior_net_y
+        self.decoder_x = decoder_x
+        self.decoder_c = decoder_c
+        self.decoder_y = decoder_y
+        # Learned global observation-noise scalar
+        self.log_sigma_x = nn.Parameter(log_sigma_x)
+
+
+@dataclasses.dataclass
+class DPIVAE:
+    """Static model configuration: dims, architecture, the fixed z_x prior
+    ``prior_x``, the frozen ``physics_model``, and the fitted input scalers
+    and z_x squash built by ``train.setup.setup_model``."""
+
+    prior_x: MarginalDistribution
+    physics_model: Callable[[torch.Tensor], torch.Tensor]
+    nz_x: int
+    nz_c: int
+    nz_y: int
+    nd_x: int
+    nd_c: int
+    nd_y: int
+    idx_c_phys: Tuple[int, ...]
+    model_type: str = "S"
+    full_cov_prior: bool = False
+    lambda_x: Optional[float] = None
+    encoder_layers_s: Tuple[int, ...] = (128,)  # S-mode joint encoder
+    encoder_x_arch: str = "NN"
+    prior_net_layers: Tuple[int, ...] = (64,)
+    decoder_aux_layers: Tuple[int, ...] = (64,)
+    decoder_x_hidden: int = DECODER_X_HIDDEN
+    transform_x: Optional[object] = None
+    transform_c: Optional[object] = None
+    transform_y: Optional[object] = None
+    output_transform_zx: Optional[object] = None  # squash for z_x
+    # Run decoder_x's data-driven branch through the fused-MLP kernel
+    use_pallas: bool = False
+    compute_dtype: Optional[str] = None
+    remat_decode: bool = False
+    # MC chunking of the training loss's decode; sampling ignores it
+    mc_chunk: Optional[int] = None
+
+    def __post_init__(self):
+        if self.model_type == "P":
+            raise _not_ported("the P model", "queue 1, item 7")
+        if self.model_type != "S":
+            raise ValueError(f"Invalid model_type {self.model_type}")
+        if self.encoder_x_arch == "CNN":
+            raise _not_ported("the CNN encoder", "queue 1, item 7")
+        if self.encoder_x_arch != "NN":
+            raise ValueError(f"Unknown encoder_x choice: {self.encoder_x_arch}")
+        if self.compute_dtype is not None:
+            raise _not_ported("compute_dtype='bfloat16'", "queue 1, item 7")
+        if self.remat_decode:
+            raise _not_ported("remat_decode", "queue 1, item 7")
+
+    # ------------------------------------------------------------------
+    # Initialization
+    # ------------------------------------------------------------------
+    def init(self, generator: torch.Generator,
+             device: DeviceLike = None) -> DPIVAEParams:
+        """Build the params, drawn from ``generator``, on ``device`` (None
+        means CUDA)."""
+        device = resolve_device(device)
+        prior_cls = FullCovNN if self.full_cov_prior else FactorizedNN
+        nz = self.nz_x + self.nz_c + self.nz_y
+        return DPIVAEParams(
+            encoder=FullCovNN(nz, self.nd_x, self.encoder_layers_s,
+                              generator, device),
+            prior_net_c=prior_cls(self.nz_c, self.nd_c, self.prior_net_layers,
+                                  generator, device),
+            prior_net_y=prior_cls(self.nz_y, self.nd_y, self.prior_net_layers,
+                                  generator, device),
+            decoder_x=GradRevAdditiveDecoder(
+                self.nz_c + self.nz_y, self.nd_x, generator, device,
+                hidden=self.decoder_x_hidden,
+            ),
+            decoder_c=GaussianDecoder(self.nz_c, self.nd_c,
+                                      self.decoder_aux_layers, generator, device),
+            decoder_y=GaussianDecoder(self.nz_y, self.nd_y,
+                                      self.decoder_aux_layers, generator, device),
+            log_sigma_x=torch.zeros((), device=device),
+        )
+
+    # ------------------------------------------------------------------
+    # Forward components
+    # ------------------------------------------------------------------
+    def transform_inputs(self, x=None, c=None, y=None):
+        """Standardize the provided modalities."""
+        x_t = c_t = y_t = None
+        if x is not None:
+            x_t = self.transform_x.forward(x)[0] if self.transform_x else x
+        if c is not None:
+            c_t = self.transform_c.forward(c)[0] if self.transform_c else c
+        if y is not None:
+            y_t = self.transform_y.forward(y)[0] if self.transform_y else y
+        return x_t, c_t, y_t
+
+    def prior_net(self, params: DPIVAEParams, c, y=None):
+        """Learned conditional priors p(z_c|c), p(z_y|y) on transformed
+        inputs: (loc_c, tril_c, loc_y, tril_y), the y pair None without y."""
+        _, c_t, y_t = self.transform_inputs(c=c, y=y)
+        loc_c, tril_c = params.prior_net_c(c_t)
+        if y is None:
+            return loc_c, tril_c, None, None
+        loc_y, tril_y = params.prior_net_y(y_t)
+        return loc_c, tril_c, loc_y, tril_y
+
+    def encode(self, params: DPIVAEParams, x, n: int = 1, *,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None):
+        """Sample latents from q(z|x) for the S model: one joint encoder,
+        the squash on the z_x slice, split by dims. Returns (zx, zc, zy,
+        log q)."""
+        nz = self.nz_x + self.nz_c + self.nz_y
+        loc, tril = params.encoder(x)
+        z, dens_z = gaussian_encoder_sample(
+            loc, tril, n, generator=generator, eps=eps,
+            output_transform=self.output_transform_zx,
+        )
+        zx = z[..., : self.nz_x]
+        zc = z[..., self.nz_x: self.nz_x + self.nz_c]
+        zy = z[..., self.nz_x + self.nz_c: nz]
+        return zx, zc, zy, dens_z
+
+    def decode(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha=None):
+        """(xh_p, xh_d, c_hat, log_sigma_c, y_hat, log_sigma_y)."""
+        xh_p, xh_d = params.decoder_x(
+            zx_in, torch.cat((zc, zy), dim=-1), self.physics_model,
+            grl_alpha=grl_alpha, use_pallas=self.use_pallas,
+        )
+        yh, log_sigma_y = params.decoder_y(zy)
+        ch, log_sigma_c = params.decoder_c(zc)
+        return xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y
+
+    def _encode_latents(self, params: DPIVAEParams, x, c, cond: bool, n: int,
+                        *, generator=None, noise: Noise = None):
+        """Encode half of ``forward``: latents, their density, and the
+        decoder_x input with the physical covariates concatenated."""
+        x_t, c_t, _ = self.transform_inputs(x=x, c=c)
+        eps = None if noise is None else noise["z"]
+        zx, zc, zy, dens_z = self.encode(params, x_t, n=n,
+                                         generator=generator, eps=eps)
+
+        if cond:
+            loc_c, tril_c = params.prior_net_c(c_t)
+            eps_c = None if noise is None else noise["z_prior"]
+            zc, _ = gaussian_encoder_sample(loc_c, tril_c, n,
+                                            generator=generator, eps=eps_c)
+
+        # Raw physical covariates concatenated to z_x, tiled over the MC
+        # axis; idx_c_phys == () means no-op.
+        if self.idx_c_phys:
+            c_phys = c[..., list(self.idx_c_phys)]
+            c_phys = c_phys.expand(n, *c_phys.shape)
+            zx_in = torch.cat((zx, c_phys), dim=-1)
+        else:
+            zx_in = zx
+        return zx, zc, zy, dens_z, zx_in
+
+    def forward(self, params: DPIVAEParams, x, c, cond: bool = False,
+                n: int = 1, grl_alpha=None, *, generator=None,
+                noise: Noise = None):
+        """Full forward pass: (xh_p, xh_d, c_hat, log_sigma_c, y_hat,
+        log_sigma_y, zx, zc, zy, log q)."""
+        zx, zc, zy, dens_z, zx_in = self._encode_latents(
+            params, x, c, cond, n, generator=generator, noise=noise
+        )
+        xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y = self.decode(
+            params, zx_in, zc, zy, grl_alpha=grl_alpha
+        )
+        return xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y, zx, zc, zy, dens_z
+
+    # ------------------------------------------------------------------
+    # Loss and sampling
+    # ------------------------------------------------------------------
+    def loss(self, *args, **kwargs):
+        raise _not_ported("the training loss (DPIVAE.loss)", "queue 1, item 4")
+
+    def sample(self, params: DPIVAEParams, x, c, cond: bool = False,
+               n: int = 1, grl_alpha=None, *, generator=None,
+               noise: Noise = None):
+        """Sample noisy VAE predictions: (x_sample, xh_p, xh_d, c_sample,
+        y_sample, zx, zc, zy, log q), each with a leading MC axis of n.
+
+        Randomness comes from ``generator``, or from ``noise``, a mapping of
+        standard normals: "z" (n, batch, nz) for the encoder, "z_prior"
+        (n, batch, nz_c) when ``cond``, and "x", "c", "y" (n, batch, nd_*)
+        for the observation noise.
+        """
+        xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y, zx, zc, zy, dens_z = (
+            self.forward(params, x, c, cond=cond, n=n, grl_alpha=grl_alpha,
+                         generator=generator, noise=noise)
+        )
+        sigma_x = torch.exp(params.log_sigma_x)
+        x_sample = xh_p + xh_d + sigma_x * _normal(
+            noise, "x", xh_p.shape, generator, xh_p)
+        c_sample = ch + torch.exp(log_sigma_c) * _normal(
+            noise, "c", ch.shape, generator, ch)
+        y_sample = yh + torch.exp(log_sigma_y) * _normal(
+            noise, "y", yh.shape, generator, yh)
+        return x_sample, xh_p, xh_d, c_sample, y_sample, zx, zc, zy, dens_z

@@ -1,0 +1,3 @@
+"""Analytic physics models (counterpart of dpivae_tpu/physics/)."""
+
+from dpivae_tpu_torch.physics.beam import euler_bernoulli_point_load  # noqa: F401

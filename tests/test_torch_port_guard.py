@@ -1,0 +1,97 @@
+"""Guards on dpivae_tpu_torch's boundaries: it imports neither jax nor the
+JAX package, and its entry points do not silently run on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from dpivae_tpu_torch import TrainConfig
+from dpivae_tpu_torch.cases import get_case
+from dpivae_tpu_torch.models.vae import DPIVAE
+from dpivae_tpu_torch.serving import Predictor
+from dpivae_tpu_torch.train import init_params, setup_model
+from dpivae_tpu_torch.utils.data import sample_response
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_package_imports_no_jax_and_no_jax_package():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import dpivae_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            dpivae_tpu_torch.__path__, "dpivae_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "dpivae_tpu" or m.startswith("dpivae_tpu."))
+        print(len(names), bad)
+        sys.exit(1 if bad or len(names) < 20 else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _entry_points():
+    case = get_case("simple_beam")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        n_train=32, n_batch=16)
+    gen = torch.Generator().manual_seed(0)
+    data = sample_response(case, gen, 32, sample_dist=case.gt_dist(),
+                           device="cpu")
+    model = setup_model(cfg, case, data, device="cpu")
+    params = init_params(cfg, model, device="cpu")
+    return {
+        "sample_response": lambda: sample_response(
+            case, gen, 4, sample_dist=case.gt_dist()),
+        "setup_model": lambda: setup_model(cfg, case, data),
+        "DPIVAE.init": lambda: model.init(gen),
+        "init_params": lambda: init_params(cfg, model),
+        "Predictor": lambda: Predictor(model, params, cfg),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "sample_response", "setup_model", "DPIVAE.init", "init_params",
+    "Predictor"])
+def test_entry_point_without_device_needs_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; device=None runs on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[entry]()
+
+
+def test_sample_needs_generator_or_noise():
+    case = get_case("simple_beam")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        n_train=32, n_batch=16)
+    data = sample_response(case, torch.Generator().manual_seed(0), 32,
+                           sample_dist=case.gt_dist(), device="cpu")
+    model = setup_model(cfg, case, data, device="cpu")
+    assert isinstance(model, DPIVAE)
+    params = init_params(cfg, model, device="cpu")
+    with pytest.raises(ValueError, match="Generator"):
+        model.sample(params, data[0], data[1], n=2)
+
+
+def test_sample_response_with_fixed_factors():
+    case = get_case("simple_beam")
+    z = np.array([3.0, 0.5, 8.0, 5.0], np.float32)
+    x, c, y, zs = sample_response(case, torch.Generator().manual_seed(0), 200,
+                                  z=z, device="cpu")
+    assert x.shape == (200, 32) and c.shape == (200, 1) and y.shape == (200, 1)
+    assert torch.equal(zs, torch.from_numpy(z).expand(200, 4))
+    clean = case.full_model(torch.from_numpy(z)[None])
+    # Observation noise has sigma 0.02: the sample mean sits within 5 sigma
+    # of the noise-free response.
+    assert float((x.mean(0) - clean[0]).abs().max()) < 5 * 0.02 / np.sqrt(200)
+    assert abs(float(c.mean()) - 5.0) < 5 * 0.02 / np.sqrt(200)
+    with pytest.raises(ValueError, match="sample_dist"):
+        sample_response(case, torch.Generator(), 4, device="cpu")
