@@ -7,28 +7,46 @@ Phases; any failure exits non-zero before the result line:
 
 1. Device: requires CUDA, prints the card's name and power limit, turns
    TF32 off so every f32 product is full f32.
-2. Build: compiles ``dpivae_tpu_torch/csrc/fused_mlp.cu`` with nvcc for
-   sm_90a into ``build/dpivae_tpu_torch/`` and prints the build time and
-   ptxas's register/shared-memory report.
-3. Kernel vs plain: the fused-MLP kernel against its plain PyTorch version
-   on the same CUDA inputs at the serving shape (512 requests x 512 MC
-   samples = 262,144 rows x (4 -> 128 -> 32)), the training shape, a
-   ragged row count and hidden 256, with both timed by CUDA events.
-4. Main path: simple_beam / "dpivae" preset with use_pallas=True at full
-   width, random weights from a seed; a Predictor answers requests of
-   n_test = 512 points with n_mc_test = 512 MC samples. The kernel's launch
-   count over that run must equal the number of requests, the outputs must
-   be finite and of the right shapes, and they must agree with a
-   use_pallas=False model of the same weights under the same seeds.
+2. Build: compiles ``dpivae_tpu_torch/csrc/fused_mlp.cu`` (both kernels)
+   with nvcc for sm_90a into ``build/dpivae_tpu_torch/`` and prints the
+   build time and ptxas's register/shared-memory report.
+3. Kernels vs plain, on the same CUDA inputs, both timed by CUDA events:
+   the fused-MLP forward kernel at the serving shape (512 requests x 512
+   MC samples = 262,144 rows x (4 -> 128 -> 32)), the validation shape
+   (512 points x 64 MC), the training shape (64 x 16 MC), a ragged row
+   count and hidden 256; the hidden-recompute kernel at the training
+   shape, a ragged row count and 65,536 x (4 -> 256), also against the
+   one library call that computes it (torch._addmm_activation: GEMM with
+   a bias + ReLU epilogue); and
+   FusedMLPFunction's backward against autograd through the plain forward
+   at the training shape.
+4. Serving path: simple_beam / "dpivae" preset with use_pallas=True at
+   full width, random weights from a seed; a Predictor answers requests
+   of n_test = 512 points with n_mc_test = 512 MC samples. The forward
+   kernel's launch count over that run must equal the number of requests,
+   the outputs must be finite and of the right shapes, and they must agree
+   with a use_pallas=False model of the same weights under the same seeds.
    Each model's per-request time is taken in alternating turns.
-5. Profile: torch.profiler's device view of one request (busy share, top
-   kernels) and the fused-MLP kernel's device time per launch.
-6. Prints a ``{"kernels": [...]}`` line and, last, the device line.
+5. Serving profile: torch.profiler's device view of one request (busy
+   share, top kernels) and the forward kernel's device time per launch.
+6. Training path: ``train_model`` on simple_beam / "dpivae" with
+   use_pallas=True at full width (n_train 1,024, batch 64, 16 MC samples,
+   validation of 512 points x 64 MC every 10 iterations, as bench.py
+   times it), n_iter cut from 20,000 to 2,000. The forward kernel must
+   launch n_iter + n_iter / val_freq times and the hidden kernel n_iter
+   times; every active log row must be finite, the last ELBO_val below
+   the first, and the first 10 train rows must agree with a
+   use_pallas=False run from the same seeds and weights. Steps/s of both
+   models from warm runs in alternating turns, and torch.profiler's view
+   of one warm train step.
+7. Prints a ``{"kernels": [...]}`` line and, last, the device line.
 
-Tolerance for both comparisons: rtol 1e-5 / atol 1e-5, the forward
-tolerance of tests/test_pallas_mlp.py. Both sides are full f32 and differ
-only in summation order; through the predictor only x_sample and xh_d see
-the kernel, averaged over 512 samples.
+Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
+1e-5, as in tests/test_pallas_mlp.py: both sides are full f32 and differ
+only in summation order. Through the predictor only x_sample and xh_d see
+the kernel, averaged over 512 samples. The training rows get rtol / atol
+1e-4: ten Adam steps carry the summation-order differences of every
+step's gradients forward.
 """
 
 from __future__ import annotations
@@ -45,18 +63,31 @@ import torch
 
 SEED = 0
 RTOL = ATOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+TRAIN_TOL = 1e-4
+N_ITER = 2_000   # cut from the preset's 20,000 for the time limit
+N_ROWS_COMPARED = 10
 N_REQUESTS = 3
 N_TIMED_REQUESTS = 20
 # Least-time bound: H100 SXM published peaks
 # (f32 outside the tensor cores; HBM3), at the full 700 W power limit.
 F32_FLOPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# (rows, d_in, d_hidden, d_out); "serving" is the main path's shape.
+# (rows, d_in, d_hidden, d_out); "serving" and "training" are the shapes of
+# the serving and training paths.
 SHAPES = {
     "serving": (262_144, 4, 128, 32),
+    "validation": (32_768, 4, 128, 32),
     "training": (1_024, 4, 128, 32),
     "ragged": (1_000, 4, 128, 32),
     "hidden256": (65_536, 4, 256, 32),
+}
+# (rows, d_in, d_hidden) of the hidden-recompute kernel; "training" is the
+# training path's shape.
+HIDDEN_SHAPES = {
+    "training": (1_024, 4, 128),
+    "ragged": (1_000, 4, 128),
+    "hidden256": (65_536, 4, 256),
 }
 
 
@@ -71,17 +102,25 @@ def _card() -> str:
 
 def _device_ms(fn, reps: int = 25, inner: int = 10) -> float:
     """Median over ``reps`` of the mean device time of ``inner``
-    back-to-back calls, by CUDA events. A sleep kernel queued first lets
-    the host enqueue all calls before the first starts, so host overhead
-    between launches is not counted."""
+    back-to-back calls, by CUDA events. A sleep kernel queued first, longer
+    than the host takes to enqueue the calls, lets the host enqueue all of
+    them before the first starts, so host overhead between launches is not
+    counted."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # Cycles at 2 GHz or less, twice the host's enqueue time
+    sleep_cycles = max(5_000_000, int(4e9 * host_s))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(inner):
             fn()
@@ -98,6 +137,107 @@ def _bound_ms(rows, d_in, d_hidden, d_out):
     t_ops, t_bytes = flops / F32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _hidden_bound_ms(rows, d_in, d_hidden):
+    flops = 2 * rows * d_hidden * (d_in + 1)
+    n_bytes = 4 * (rows * d_in + d_hidden * d_in + d_hidden + rows * d_hidden)
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _backward_bound_ms(rows, d_in, d_hidden, d_out):
+    """The backward's least time: its products (dh, dW1, dW0, dx and the
+    hidden recompute) and the bytes of x, g, the weights and the five
+    gradients."""
+    flops = 2 * rows * (d_out * d_hidden * 2 + d_in * d_hidden * 3)
+    n_bytes = 8 * (rows * d_in + d_hidden * d_in + d_hidden
+                   + d_out * d_hidden + d_out) + 4 * rows * d_out
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _randn(seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *s: torch.randn(s, generator=g, device="cuda")
+
+
+def _hidden_library(x, w0, b0):
+    """The one PyTorch call that computes relu(x @ w0.T + b0): a GEMM with
+    a bias + ReLU epilogue (cuBLASLt on CUDA). Timed for comparison only;
+    the port never calls it."""
+    return torch._addmm_activation(b0, x, w0.t())
+
+
+def _hidden_vs_plain(ops, failures):
+    results = {}
+    for i, (name, (rows, d_in, d_hidden)) in enumerate(HIDDEN_SHAPES.items()):
+        f = _randn(SEED + 10 + i)
+        args = (f(rows, d_in), f(d_hidden, d_in) * 0.3, f(d_hidden) * 0.1)
+        with torch.inference_mode():
+            got = ops.fused_mlp_hidden(*args)
+            want = ops.fused_mlp_hidden_reference(*args)
+            lib = _hidden_library(*args)
+            torch.cuda.synchronize()
+            max_abs = float((got - want).abs().max())
+            lib_abs = float((lib - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+            lib_ok = bool(torch.allclose(lib, want, rtol=RTOL, atol=ATOL))
+            ms = _device_ms(lambda: ops.fused_mlp_hidden(*args))
+            plain_ms = _device_ms(lambda: ops.fused_mlp_hidden_reference(*args))
+            library_ms = _device_ms(lambda: _hidden_library(*args))
+        bound_ms, bound_by = _hidden_bound_ms(rows, d_in, d_hidden)
+        print(f"hidden kernel {name} {rows}x({d_in}->{d_hidden}): "
+              f"max_abs_err {max_abs:.3e} (rtol {RTOL} atol {ATOL}) "
+              f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (_addmm_activation, max_abs_err "
+              f"{lib_abs:.3e}) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+        if not ok:
+            failures.append(f"fused_mlp_hidden disagrees with plain at {name}")
+        if not lib_ok:
+            failures.append(f"torch._addmm_activation disagrees with plain at "
+                            f"{name}: its time is not of the same function")
+        results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+    return results
+
+
+def _backward_vs_plain(ops, failures):
+    """FusedMLPFunction's backward (hidden kernel + plain products) against
+    autograd through fused_mlp_reference, at the training shape."""
+    rows, d_in, d_hidden, d_out = SHAPES["training"]
+    f = _randn(SEED + 20)
+    args = [t.requires_grad_() for t in
+            (f(rows, d_in), f(d_hidden, d_in) * 0.3, f(d_hidden) * 0.1,
+             f(d_out, d_hidden) * 0.3, f(d_out) * 0.1)]
+    g = f(rows, d_out)
+    y_kernel = ops.fused_mlp(*args)
+    y_plain = ops.fused_mlp_reference(*args)
+    if type(y_kernel.grad_fn).__name__ != "FusedMLPFunctionBackward":
+        failures.append("fused_mlp under autograd did not use FusedMLPFunction")
+    got = torch.autograd.grad(y_kernel, args, g, retain_graph=True)
+    want = torch.autograd.grad(y_plain, args, g, retain_graph=True)
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    for name, a, b in zip(("dx", "dw0", "db0", "dw1", "db1"), got, want):
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+            failures.append(f"FusedMLPFunction's {name} disagrees with "
+                            f"autograd through the plain version")
+    ms = _device_ms(lambda: torch.autograd.grad(y_kernel, args, g,
+                                                retain_graph=True))
+    plain_ms = _device_ms(lambda: torch.autograd.grad(y_plain, args, g,
+                                                      retain_graph=True))
+    bound_ms, bound_by = _backward_bound_ms(rows, d_in, d_hidden, d_out)
+    print(f"backward training {rows}x({d_in}->{d_hidden}->{d_out}): five "
+          f"gradients max_abs_err {max_abs:.3e} (rtol {GRAD_RTOL} atol "
+          f"{GRAD_ATOL}); FusedMLPFunction {ms:.4f} ms, plain autograd "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
 
 
 def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
@@ -130,7 +270,7 @@ def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
     return results
 
 
-def _main_path(fused_mlp, failures):
+def _main_path(ops, failures):
     from dpivae_tpu_torch import TrainConfig
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor
@@ -158,15 +298,18 @@ def _main_path(fused_mlp, failures):
     ]
     torch.cuda.synchronize()
 
-    fused_mlp.launches = 0
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
     answers = [predictor(x, c, seed=i) for i, (x, c) in enumerate(requests)]
-    launches = fused_mlp.launches
+    launches = ops.fused_mlp.launches
+    hidden_launches = ops.fused_mlp_hidden.launches
 
-    print(f"main path: {N_REQUESTS} requests of {cfg.n_test} points x "
-          f"{cfg.n_mc_test} MC samples; fused_mlp launches {launches}")
-    if launches != N_REQUESTS:
-        failures.append(f"expected {N_REQUESTS} kernel launches on the main "
-                        f"path, counted {launches}")
+    print(f"serving path: {N_REQUESTS} requests of {cfg.n_test} points x "
+          f"{cfg.n_mc_test} MC samples; launches fused_mlp_fwd {launches}, "
+          f"fused_mlp_hidden {hidden_launches}")
+    if (launches, hidden_launches) != (N_REQUESTS, 0):
+        failures.append(f"expected {N_REQUESTS} forward and no hidden kernel "
+                        f"launches on the serving path, counted {launches} "
+                        f"and {hidden_launches}")
     widths = dict(x_sample=case.nd_x, xh_p=case.nd_x, xh_d=case.nd_x,
                   c_sample=case.nd_c, y=case.nd_y, zx=case.nz_x,
                   zc=cfg.nz_c, zy=cfg.nz_y)
@@ -189,7 +332,7 @@ def _main_path(fused_mlp, failures):
         zx = torch.from_numpy(answer["zx"])
         if not ((zx >= lb) & (zx <= ub)).all():
             failures.append("zx left the prior bounds")
-    print(f"main path vs use_pallas=False model: max_abs_err {worst:.3e} "
+    print(f"serving path vs use_pallas=False model: max_abs_err {worst:.3e} "
           f"(rtol {RTOL} atol {ATOL})")
 
     # Per-request time, kernel and plain models in alternating turns.
@@ -211,15 +354,50 @@ def _main_path(fused_mlp, failures):
             statistics.median(times[plain]), predictor, requests[0])
 
 
-def _profile(predictor, request, fused_mlp):
+def _device_events(prof):
+    """Kernel-level device events (kernels, copies, fills), largest first.
+    An aten op's own device time is the sum of its kernels', and the
+    profiler also puts user-annotation ranges (Optimizer.step) on the
+    device timeline, so only kernel-level events are summed."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+
+
+def _print_profile(what, events, wall_ms, unprofiled_ms):
+    """Device busy time of a profiled window, its share of the same work's
+    unprofiled wall time, and the top device kernels."""
+    if not events:
+        print(f"profile of {what}: the profiler saw no device time "
+              f"(not measured)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile of {what}: device busy {busy_ms:.3f} ms in "
+          f"{sum(e.count for e in events)} device kernels; "
+          f"{100 * busy_ms / unprofiled_ms:.1f} % of the unprofiled wall "
+          f"{unprofiled_ms:.3f} ms (wall under the profiler {wall_ms:.3f} ms)")
+    for e in events[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
+def _per_launch(events, kernel, what):
+    mine = [e for e in events if kernel in e.key]
+    if mine:
+        per = mine[0].self_device_time_total / mine[0].count / 1e3
+        print(f"profile: {kernel} at {what}: {per:.4f} ms device time per "
+              f"launch (x{mine[0].count})")
+
+
+def _profile(predictor, request, fused_mlp, request_ms):
     """Device-side view from torch.profiler: one warm request's kernels and
     device busy share, and the fused-MLP kernel's own device time per launch
-    at the serving and training shapes. Runs after the counted main path."""
+    at the serving and training shapes. Runs after the counted serving path."""
     from torch.profiler import ProfilerActivity, profile
-
-    def device_events(prof):
-        return [e for e in prof.key_averages()
-                if e.self_device_time_total > 0]
 
     x, c = request
     predictor(x, c, seed=0)
@@ -228,23 +406,11 @@ def _profile(predictor, request, fused_mlp):
         t0 = time.perf_counter()
         predictor(x, c, seed=0)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    if not events:
-        print("profile: the profiler saw no device time (not measured)")
-        return
-    print(f"profile of one request: wall {wall_ms:.3f} ms under the "
-          f"profiler, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f} %), "
-          f"{sum(e.count for e in events)} device ops")
-    for e in events[:8]:
-        print(f"  {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<3d} "
-              f"{e.key[:90]}")
+    _print_profile("one request", _device_events(prof), wall_ms, request_ms)
 
     for name in ("serving", "training"):
         rows, d_in, d_hidden, d_out = SHAPES[name]
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        f = lambda *s: torch.randn(s, generator=g, device="cuda")
+        f = _randn(SEED)
         args = (f(rows, d_in), f(d_hidden, d_in), f(d_hidden),
                 f(d_out, d_hidden), f(d_out))
         with torch.inference_mode():
@@ -254,12 +420,137 @@ def _profile(predictor, request, fused_mlp):
                 for _ in range(20):
                     fused_mlp(*args)
                 torch.cuda.synchronize()
-        mine = [e for e in device_events(prof) if "fused_mlp" in e.key]
-        if mine:
-            per = mine[0].self_device_time_total / mine[0].count / 1e3
-            print(f"profile: fused_mlp_fwd_kernel at {name} "
-                  f"{rows}x({d_in}->{d_hidden}->{d_out}): {per:.4f} ms "
-                  f"device time per launch")
+        _per_launch(_device_events(prof), "fused_mlp_fwd_kernel",
+                    f"{name} {rows}x({d_in}->{d_hidden}->{d_out})")
+
+
+def _training(ops, failures):
+    """The training path, counted, checked against a use_pallas=False run
+    of the same seeds and weights, and timed in alternating turns."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.train import (
+        TRAIN_COLUMNS,
+        init_params,
+        setup_model,
+        train_model,
+    )
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    case = get_case("simple_beam")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_pallas=True, use_seed=True, seed=SEED, patience=10**9,
+        n_iter=N_ITER)
+    workload = (cfg.n_train, cfg.n_batch, cfg.n_mc_train, cfg.n_val,
+                cfg.n_mc_val, cfg.val_freq)
+    if workload != (1_024, 64, 16, 512, 64, 10):
+        failures.append(f"training workload {workload} is not bench.py's")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data_train = sample_response(case, gen, cfg.n_train,
+                                 sample_dist=case.gt_dist(), device="cuda")
+    data_val = sample_response(case, gen, cfg.n_val,
+                               sample_dist=case.gt_dist(), device="cuda")
+    model = setup_model(cfg, case, data_train, device="cuda")
+    params = init_params(cfg, model, device="cuda")
+    configs = {"kernel": cfg, "plain": cfg.replace(use_pallas=False)}
+
+    def run(name):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logs = train_model(configs[name], model, case, data_train,
+                              data_val, params=params, generator=g,
+                              device="cuda")
+        torch.cuda.synchronize()
+        return logs, time.perf_counter() - t0
+
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    logs, cold_s = run("kernel")
+    launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    want = (N_ITER + N_ITER // cfg.val_freq, N_ITER)
+    print(f"training path: {N_ITER} steps ({cfg.n_batch} x {cfg.n_mc_train} "
+          f"MC, validation of {cfg.n_val} x {cfg.n_mc_val} MC every "
+          f"{cfg.val_freq}) in {cold_s:.2f} s (first run); launches "
+          f"fused_mlp_fwd {launches[0]}, fused_mlp_hidden {launches[1]} "
+          f"(expected {want[0]}, {want[1]})")
+    if launches != want:
+        failures.append(f"training launches {launches}, expected {want}")
+
+    train = logs.train[logs.train_active]
+    val = logs.val[logs.val_active]
+    if logs.stop_iter != N_ITER:
+        failures.append(f"training stopped at {logs.stop_iter}")
+    if not (torch.isfinite(train).all() and torch.isfinite(val).all()):
+        failures.append("a training log row is not finite")
+    _, elbo_val = logs.scalars("ELBO_val")
+    _, elbo = logs.scalars("ELBO")
+    print(f"training path: ELBO_val {elbo_val[0]:.4f} -> {elbo_val[-1]:.4f}, "
+          f"ELBO {elbo[0]:.4f} -> {elbo[-1]:.4f}, sigma_x "
+          f"{float(logs.train[-1, TRAIN_COLUMNS.index('sigma_x')]):.4f}")
+    if not elbo_val[-1] < elbo_val[0]:
+        failures.append("ELBO_val did not decrease")
+
+    plain_logs, _ = run("plain")
+    got = logs.train[:N_ROWS_COMPARED]
+    ref = plain_logs.train[:N_ROWS_COMPARED]
+    worst = float((got - ref).abs().max())
+    print(f"training path vs use_pallas=False run: first {N_ROWS_COMPARED} "
+          f"rows max_abs_err {worst:.3e} (rtol {TRAIN_TOL} atol {TRAIN_TOL})")
+    if not torch.allclose(got, ref, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        failures.append("the first train rows disagree with the "
+                        "use_pallas=False run")
+
+    times = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        times[name].append(run(name)[1])
+    steps_s = {name: N_ITER / statistics.median(t) for name, t in times.items()}
+    for name, t in times.items():
+        print(f"training steps/s, {name} model: {steps_s[name]:.1f} "
+              f"(median of warm runs of {N_ITER} steps: "
+              f"{', '.join(f'{x:.3f}' for x in t)} s)")
+    return launches, steps_s, (cfg, case, model, params, data_train, data_val)
+
+
+def _profile_train_step(setup):
+    """torch.profiler's view of one warm train step of the kernel model."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpivae_tpu_torch.train.train import Trainer
+
+    cfg, case, _, params, data_train, data_val = setup
+    run = Trainer(cfg, case, copy.deepcopy(params), data_train, data_val,
+                  cfg.lambda_g0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for i in range(5):
+        run.step(i, generator=g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(5, 25):
+        run.step(i, generator=g)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step(25, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = _device_events(prof)
+    _print_profile("one train step", events, wall_ms, step_ms)
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0
+                   and not e.is_user_annotation),
+                  key=lambda e: -e.self_cpu_time_total)
+    print(f"profile of one train step, host side: "
+          f"{sum(e.count for e in host if e.key.startswith('aten::'))} aten "
+          f"op calls (nested calls included); self CPU time under the "
+          f"profiler, largest first:")
+    for e in host[:6]:
+        print(f"  {e.self_cpu_time_total / 1e3:8.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    for kernel in ("fused_mlp_fwd_kernel", "fused_mlp_hidden_kernel"):
+        _per_launch(events, kernel, "training 1024 rows")
 
 
 def main() -> int:
@@ -267,11 +558,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dpivae_tpu_torch.ops.fused_mlp import (
-        build_library,
-        fused_mlp,
-        fused_mlp_reference,
-    )
+    from dpivae_tpu_torch.ops import fused_mlp as ops
 
     card = _card()
     print(card)
@@ -280,38 +567,62 @@ def main() -> int:
     failures = []
 
     t0 = time.perf_counter()
-    lib_path, log = build_library()
+    lib_path, log = ops.build_library()
     print(f"built {os.path.relpath(lib_path)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if ("registers" in line or "spill" in line or "smem" in line
+                or "Compiling entry" in line):
             print(f"  ptxas: {line.strip()}")
 
-    results = _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures)
-    launches, req_ms, req_plain_ms, predictor, request = _main_path(
-        fused_mlp, failures)
+    results = _kernel_vs_plain(ops.fused_mlp, ops.fused_mlp_reference,
+                               failures)
+    hidden = _hidden_vs_plain(ops, failures)
+    backward = _backward_vs_plain(ops, failures)
+    serve_launches, req_ms, req_plain_ms, predictor, request = _main_path(ops, failures)
     print(f"per request ({card}): kernel model {req_ms:.3f} ms, "
           f"plain model {req_plain_ms:.3f} ms "
           f"(warm median of {N_TIMED_REQUESTS})")
-    _profile(predictor, request, fused_mlp)
+    _profile(predictor, request, ops.fused_mlp, req_ms)
+    (fwd_launches, hidden_launches), steps_s, setup = _training(ops, failures)
+    print(f"training steps/s ({card}): kernel model {steps_s['kernel']:.1f}, "
+          f"plain model {steps_s['plain']:.1f} (n_iter {N_ITER})")
+    _profile_train_step(setup)
+    print(f"launches on the main paths: fused_mlp_fwd serving "
+          f"{serve_launches} + training {fwd_launches}; fused_mlp_hidden "
+          f"serving 0 + training {hidden_launches}")
 
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    serving = results["serving"]
+    serving, train_hidden = results["serving"], hidden["training"]
+    source = "dpivae_tpu_torch/csrc/fused_mlp.cu"
     print(json.dumps({"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
-        "source": "dpivae_tpu_torch/csrc/fused_mlp.cu",
+        "source": source,
         "replaces": "dpivae_tpu/ops/pallas_mlp.py:38",
-        "launches": launches,
+        "launches": serve_launches + fwd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "ms": serving["ms"],
         "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_mlp_hidden",
+        "route": "cuda",
+        "source": source,
+        "replaces": "dpivae_tpu/ops/pallas_mlp.py:46",
+        "launches": hidden_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in hidden.values()]
+                           + [backward["max_abs_err"]]),
+        "ms": train_hidden["ms"],
+        "plain_ms": train_hidden["plain_ms"],
+        "bound_ms": train_hidden["bound_ms"],
+        "bound_by": train_hidden["bound_by"],
+        "library_ms": train_hidden["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,16 +5,17 @@ against; module names mirror it so each counterpart is easy to find:
 
 - ``dpivae_tpu_torch.config``   — ``TrainConfig`` (dpivae_tpu/config.py).
 - ``dpivae_tpu_torch.utils``    — distributions, priors, transforms, data
-  generation (dpivae_tpu/utils/).
+  generation, annealing schedules, early stopping (dpivae_tpu/utils/).
 - ``dpivae_tpu_torch.physics``  — the analytic beam (dpivae_tpu/physics/).
 - ``dpivae_tpu_torch.cases``    — the ``simple_beam`` case
   (dpivae_tpu/cases/).
 - ``dpivae_tpu_torch.ops``      — gradient reversal, MVN sampling and the
-  hand-written CUDA fused-MLP kernel (dpivae_tpu/ops/).
+  hand-written CUDA fused-MLP kernels with their autograd function
+  (dpivae_tpu/ops/).
 - ``dpivae_tpu_torch.models``   — encoders, decoders and ``DPIVAE``
   (dpivae_tpu/models/).
-- ``dpivae_tpu_torch.train``    — ``setup_model``/``init_params``
-  (dpivae_tpu/train/setup.py).
+- ``dpivae_tpu_torch.train``    — ``setup_model``/``init_params``, the
+  grouped Adam and ``train_model`` (dpivae_tpu/train/).
 - ``dpivae_tpu_torch.serving``  — the MC-posterior predictor
   (dpivae_tpu/serving.py).
 - ``dpivae_tpu_torch.convert``  — JAX params pytree -> this package's

@@ -1,3 +1,6 @@
+// The two kernels of the fused two-layer MLP: the forward (this note) and
+// the backward's hidden-layer recompute (fused_mlp_hidden_kernel, below).
+//
 // Fused two-layer MLP forward, y = relu(x @ W0^T + b0) @ W1^T + b1, in f32.
 //
 // Replaces the TPU kernel dpivae_tpu/ops/pallas_mlp.py:_mlp_kernel
@@ -32,6 +35,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -154,6 +159,116 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   }
 }
 
+// Hidden-layer recompute for the backward pass, h = relu(x @ W0^T + b0),
+// in f32. Replaces the TPU kernel dpivae_tpu/ops/pallas_mlp.py:
+// _mlp_hidden_kernel (launched by _pallas_hidden): the forward never saves
+// the (rows, H) activation, so the backward rebuilds it.
+//
+// What bounds it on an H100: at the training shape, 1,024 rows x (4 -> 128),
+// it must write 0.52 MB of h against 1 MFLOP of arithmetic, so it is bound
+// by the bytes it writes (0.16 us at 3.35 TB/s); at 1,024 rows, in practice,
+// by launch latency.
+//
+// What the design does about it: each block stages W0 (transposed, so that
+// neighbouring threads read neighbouring hidden units), b0 and its tile of
+// kHiddenRows rows of x in shared memory; each thread then computes h
+// values with consecutive threads on consecutive hidden units of one row,
+// so every warp's store is one coalesced 128-byte line. Any row count
+// (masked ragged tail) and any d_in, H whose staged weights fit one block's
+// shared memory; larger shapes are refused by the launcher.
+constexpr int kHiddenRows = 32;       // rows per block
+
+size_t hidden_smem_floats(int d_in, int d_hidden) {
+  return (size_t)d_in * d_hidden          // W0, transposed
+         + d_hidden                       // b0
+         + (size_t)kHiddenRows * d_in;    // x tile
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_mlp_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+                        const float* __restrict__ b0, float* __restrict__ h,
+                        int64_t rows, int d_in, int d_hidden) {
+  extern __shared__ __align__(16) float smem[];
+  float* w0t = smem;                                   // [d_in][d_hidden]
+  float* b0s = w0t + (size_t)d_in * d_hidden;          // [d_hidden]
+  float* xs = b0s + d_hidden;                          // [kHiddenRows][d_in]
+
+  const int tid = threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * kHiddenRows;
+  const int64_t left = rows - row0;
+  const int n_rows = left < kHiddenRows ? (int)left : kHiddenRows;
+
+  for (int i = tid; i < d_hidden * d_in; i += kThreads) {
+    const int k = i / d_in;
+    const int j = i % d_in;
+    w0t[(size_t)j * d_hidden + k] = w0[i];
+  }
+  for (int i = tid; i < d_hidden; i += kThreads) b0s[i] = b0[i];
+  for (int i = tid; i < n_rows * d_in; i += kThreads) xs[i] = x[row0 * d_in + i];
+  __syncthreads();
+
+  const int n_out = n_rows * d_hidden;
+  for (int i = tid; i < n_out; i += kThreads) {
+    const int r = i / d_hidden;
+    const int k = i % d_hidden;
+    const float* xr = xs + r * d_in;
+    float v = b0s[k];
+    for (int j = 0; j < d_in; ++j) v = fmaf(xr[j], w0t[(size_t)j * d_hidden + k], v);
+    h[row0 * d_hidden + i] = fmaxf(v, 0.f);
+  }
+}
+
+// What a launch asks of the runtime that does not change between launches:
+// the device's limits, the dynamic shared memory already granted to each
+// kernel, and the forward's occupancy at its last size. Read or set once per
+// device and reused, so a launch costs no attribute queries; launches hold
+// g_launch_mutex while they read or update it.
+constexpr int kMaxDevices = 64;
+struct DeviceState {
+  int n_sm = 0;               // 0 until the limits are read
+  int max_smem = 0;
+  size_t fwd_granted = 0;     // largest size granted to fused_mlp_fwd_kernel
+  size_t hidden_granted = 0;  // ... and to fused_mlp_hidden_kernel
+  size_t fwd_occ_smem = 0;    // fwd_per_sm holds for this size
+  int fwd_per_sm = 0;
+};
+std::mutex g_launch_mutex;
+DeviceState g_devices[kMaxDevices];
+
+// The calling thread's current device, its limits read on first use.
+cudaError_t current_device(DeviceState** state) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceState& s = g_devices[device];
+  if (s.n_sm == 0) {
+    int max_smem = 0, n_sm = 0;
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    s.max_smem = max_smem;
+    s.n_sm = n_sm;
+  }
+  *state = &s;
+  return cudaSuccess;
+}
+
+// Grants `kernel` `smem` bytes of dynamic shared memory on the current
+// device, unless `*granted` (its earlier grant there) already covers them;
+// refuses more than the device allows one block.
+cudaError_t set_smem(const void* kernel, size_t smem, const DeviceState& s,
+                     size_t* granted) {
+  if (smem > (size_t)s.max_smem) return cudaErrorInvalidValue;
+  if (smem <= *granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) *granted = smem;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -176,29 +291,25 @@ int fused_mlp_fwd(const void* x, const void* w0, const void* b0, const void* w1,
                   int d_hidden, int d_out, void* stream) {
   if (rows <= 0) return cudaSuccess;
   const size_t smem = fused_mlp_fwd_smem_bytes(d_in, d_hidden);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  std::lock_guard<std::mutex> lock(g_launch_mutex);
+  DeviceState* s = nullptr;
+  cudaError_t err = current_device(&s);
   if (err != cudaSuccess) return err;
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
+  err = set_smem((const void*)fused_mlp_fwd_kernel, smem, *s, &s->fwd_granted);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_mlp_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_mlp_fwd_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) per_sm = 1;
+  if (s->fwd_occ_smem != smem) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_mlp_fwd_kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    s->fwd_per_sm = per_sm < 1 ? 1 : per_sm;
+    s->fwd_occ_smem = smem;
+  }
 
   const int col_tiles = (d_out + kTileCols - 1) / kTileCols;
   const long long n_tiles = (rows + kTileRows - 1) / kTileRows;
-  long long resident = ((long long)n_sm * per_sm + col_tiles - 1) / col_tiles;
+  long long resident =
+      ((long long)s->n_sm * s->fwd_per_sm + col_tiles - 1) / col_tiles;
   const long long grid_x = n_tiles < resident ? n_tiles : resident;
   dim3 grid((unsigned)grid_x, (unsigned)col_tiles);
   fused_mlp_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -206,6 +317,35 @@ int fused_mlp_fwd(const void* x, const void* w0, const void* b0, const void* w1,
       static_cast<const float*>(b0), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<float*>(out), rows, d_in,
       d_hidden, d_out);
+  return cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory one block of the hidden kernel needs.
+size_t fused_mlp_hidden_smem_bytes(int d_in, int d_hidden) {
+  return hidden_smem_floats(d_in, d_hidden) * sizeof(float);
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Pointers are device pointers to contiguous f32 arrays: x (rows, d_in),
+// w0 (d_hidden, d_in), b0 (d_hidden), h (rows, d_hidden).
+int fused_mlp_hidden(const void* x, const void* w0, const void* b0, void* h,
+                     long long rows, int d_in, int d_hidden, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  const long long n_blocks = (rows + kHiddenRows - 1) / kHiddenRows;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = fused_mlp_hidden_smem_bytes(d_in, d_hidden);
+  std::lock_guard<std::mutex> lock(g_launch_mutex);
+  DeviceState* s = nullptr;
+  cudaError_t err = current_device(&s);
+  if (err != cudaSuccess) return err;
+  err = set_smem((const void*)fused_mlp_hidden_kernel, smem, *s,
+                 &s->hidden_granted);
+  if (err != cudaSuccess) return err;
+  fused_mlp_hidden_kernel<<<(unsigned)n_blocks, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0),
+      static_cast<const float*>(b0), static_cast<float*>(h), rows, d_in,
+      d_hidden);
   return cudaGetLastError();
 }
 

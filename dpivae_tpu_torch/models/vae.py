@@ -1,5 +1,5 @@
 """DPIVAE: the physics-informed adversarially-disentangled VAE (counterpart
-of dpivae_tpu/models/vae.py:110-318,468-478).
+of dpivae_tpu/models/vae.py:33-35,110-478).
 
 ``DPIVAE`` is a static configuration object, as in the JAX package; the
 trainable state is a ``DPIVAEParams`` module with one submodule per
@@ -12,15 +12,16 @@ Randomness is explicit: ``sample``/``forward``/``encode`` take a
 ``torch.Generator``, or a ``noise`` mapping of ready-made standard normals
 (the seam through which tests hand in the JAX package's exact draws).
 
-Ported so far: the S model's sampling path. Not yet: the training loss
-(``loss`` and its MC-chunked form), the P model, the CNN encoder,
-``compute_dtype="bfloat16"`` and ``remat_decode``; each raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Ported so far: the S model's sampling path and its training loss
+(``loss``, with the MC-chunked form of ``mc_chunk``). Not yet: the P model,
+the CNN encoder, ``compute_dtype="bfloat16"`` and ``remat_decode``; each
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Mapping, Optional, Tuple
 
 import torch
@@ -36,7 +37,13 @@ from dpivae_tpu_torch.models.encoders import (
     FullCovNN,
     gaussian_encoder_sample,
 )
-from dpivae_tpu_torch.utils import DeviceLike, randn, resolve_device
+from dpivae_tpu_torch.ops.mvn import mvn_log_prob
+from dpivae_tpu_torch.utils import (
+    GAUSSIAN_CONST,
+    DeviceLike,
+    randn,
+    resolve_device,
+)
 from dpivae_tpu_torch.utils.distributions import MarginalDistribution
 
 Noise = Optional[Mapping[str, torch.Tensor]]
@@ -46,6 +53,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to dpivae_tpu_torch yet (ROADMAP.md, {item})"
     )
+
+
+def _normal_log_prob(x, loc, scale):
+    """Elementwise Gaussian log density; ``scale`` a tensor or a float."""
+    zn = (x - loc) / scale
+    log_scale = (torch.log(scale) if isinstance(scale, torch.Tensor)
+                 else math.log(scale))
+    return -0.5 * zn * zn + GAUSSIAN_CONST - log_scale
+
+
+def _mc_sum(log_prob):
+    """Sum over the last (data) axis, then over the leading MC axis."""
+    return torch.sum(torch.sum(log_prob, dim=-1), dim=0)
 
 
 def _normal(noise: Noise, name: str, shape, generator, like: torch.Tensor):
@@ -248,8 +268,65 @@ class DPIVAE:
     # ------------------------------------------------------------------
     # Loss and sampling
     # ------------------------------------------------------------------
-    def loss(self, *args, **kwargs):
-        raise _not_ported("the training loss (DPIVAE.loss)", "queue 1, item 4")
+    def loss(self, params: DPIVAEParams, x, c, y, n: int = 1, beta_x=1.0,
+             beta_c=1.0, beta_y=1.0, alpha_x=1.0, alpha_c=1.0, alpha_y=1.0,
+             grl_alpha=None, *, generator=None, noise: Noise = None):
+        """Per-datapoint Monte-Carlo ELBO.
+
+        Returns the 8-tuple (loss, KL_x, KL_c, KL_y, R_x, R_c, R_y, reg),
+        each of shape (batch,). Randomness comes from ``generator`` or from
+        ``noise={"z": (n, batch, nz)}``, the encoder's standard normals.
+
+        With ``mc_chunk`` set (and < n) the decode and the reconstruction
+        terms run over n/mc_chunk equal MC chunks, summed and divided by n
+        at the end: the same MC means up to summation order. n must be a
+        multiple of mc_chunk.
+        """
+        mc = self.mc_chunk if self.mc_chunk is not None and self.mc_chunk < n else n
+        if n % mc:
+            raise ValueError(
+                f"mc_chunk={self.mc_chunk} must divide the MC sample "
+                f"count n={n} (equal chunks keep the MC mean exact)"
+            )
+        zx, zc, zy, dens_z, zx_in = self._encode_latents(
+            params, x, c, False, n, generator=generator, noise=noise
+        )
+
+        # Priors: fixed marginal on z_x, learned full-cov Gaussians on z_c, z_y
+        loc_c, tril_c, loc_y, tril_y = self.prior_net(params, c, y=y)
+        log_prior_zx = torch.sum(self.prior_x.log_prob(zx), dim=-1)
+        log_prior_zc = mvn_log_prob(zc, loc_c, tril_c)
+        log_prior_zy = mvn_log_prob(zy, loc_y, tril_y)
+        log_prior_z = log_prior_zx + log_prior_zc + log_prior_zy
+
+        # Joint-latent MC KL estimate
+        KL_x = torch.mean(dens_z - log_prior_z, dim=0)
+        KL_c = torch.zeros_like(KL_x)
+        KL_y = torch.zeros_like(KL_x)
+
+        # Gaussian reconstruction log-likelihoods, summed over MC chunks
+        sigma_x = torch.exp(params.log_sigma_x)
+        sums = None
+        for start in range(0, n, mc):
+            chunk = slice(start, start + mc)
+            xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y = self.decode(
+                params, zx_in[chunk], zc[chunk], zy[chunk], grl_alpha=grl_alpha
+            )
+            terms = [
+                _mc_sum(_normal_log_prob(x, xh_p + xh_d, sigma_x)),
+                _mc_sum(_normal_log_prob(c, ch, torch.exp(log_sigma_c))),
+                _mc_sum(_normal_log_prob(y, yh, torch.exp(log_sigma_y))),
+            ]
+            # Optional magnitude penalty on the data-driven branch
+            if self.lambda_x is not None:
+                terms.append(_mc_sum(_normal_log_prob(xh_d, 0.0, self.lambda_x)))
+            sums = terms if sums is None else [
+                a + b for a, b in zip(sums, terms)]
+        R_x, R_c, R_y = (s / n for s in sums[:3])
+        reg = sums[3] / n if self.lambda_x is not None else torch.zeros_like(KL_x)
+
+        loss = beta_x * KL_x - alpha_x * R_x - alpha_c * R_c - alpha_y * R_y - reg
+        return loss, KL_x, KL_c, KL_y, R_x, R_c, R_y, reg
 
     def sample(self, params: DPIVAEParams, x, c, cond: bool = False,
                n: int = 1, grl_alpha=None, *, generator=None,

@@ -1,5 +1,5 @@
-"""Fused two-layer MLP, linear -> ReLU -> linear (counterpart of
-dpivae_tpu/ops/pallas_mlp.py).
+"""Fused two-layer MLP, linear -> ReLU -> linear, and its backward
+(counterpart of dpivae_tpu/ops/pallas_mlp.py).
 
 ``fused_mlp(x, w0, b0, w1, b1)`` computes ``relu(x @ w0.T + b0) @ w1.T + b1``
 with weights in ``torch.nn.Linear`` layout (``w0: (H, d_in)``,
@@ -14,9 +14,16 @@ device of ``x``:
   through its plain C interface with ``ctypes``. A build or launch failure
   raises; nothing falls back to the plain version on the card.
 
-Only the forward pass is ported so far: a CUDA call that would need a
-gradient raises ``NotImplementedError``. ``fused_mlp.launches`` counts the
-kernel's launches, so a run can show that it went through the kernel.
+When autograd needs a gradient, ``fused_mlp`` goes through
+``FusedMLPFunction``, the counterpart of the custom VJP
+``_fused_mlp_fwd``/``_fused_mlp_bwd`` (pallas_mlp.py:202-222): the forward
+saves its inputs and not the hidden activation, and the backward recomputes
+it with ``fused_mlp_hidden`` (the counterpart of ``_mlp_hidden_kernel``,
+the second kernel of ``csrc/fused_mlp.cu``; ``fused_mlp_hidden_reference``
+on the CPU) before the plain matrix products of the gradients.
+
+``fused_mlp.launches`` and ``fused_mlp_hidden.launches`` count each
+kernel's launches, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +52,11 @@ NVCC_FLAGS = (
 def fused_mlp_reference(x, w0, b0, w1, b1):
     """The plain PyTorch version: what the kernel is held against."""
     return F.linear(F.relu(F.linear(x, w0, b0)), w1, b1)
+
+
+def fused_mlp_hidden_reference(x, w0, b0):
+    """The plain version of the hidden-layer recompute."""
+    return F.relu(F.linear(x, w0, b0))
 
 
 def _nvcc() -> str:
@@ -97,82 +109,150 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.fused_mlp_fwd.restype = ctypes.c_int
-    lib.fused_mlp_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.fused_mlp_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_mlp_hidden.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.fused_mlp_hidden.restype = ctypes.c_int
+    for name in ("fused_mlp_fwd_smem_bytes", "fused_mlp_hidden_smem_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_size_t
     lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
     lib.fused_mlp_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(x, w0, b0, w1, b1) -> None:
-    named = dict(x=x, w0=w0, b0=b0, w1=w1, b1=b1)
-    for name, t in named.items():
+def _check(name, x, weights, biases) -> None:
+    """Raise on what the kernels do not take: dtype, device, layout and
+    shapes of x and each (weight, bias) layer in nn.Linear layout."""
+    tensors = dict(x=x)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        tensors[f"w{i}"], tensors[f"b{i}"] = w, b
+    for arg, t in tensors.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"fused_mlp: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
         if t.device != x.device:
-            raise ValueError(
-                f"fused_mlp: {name} is on {t.device}, x on {x.device}"
-            )
+            raise ValueError(f"{name}: {arg} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
-            raise ValueError(f"fused_mlp: {name} must be contiguous")
-    d_in = x.shape[-1]
-    if w0.dim() != 2 or w1.dim() != 2 or x.dim() < 1 or d_in < 1:
-        raise ValueError(
-            f"fused_mlp: bad ranks x{tuple(x.shape)} w0{tuple(w0.shape)} "
-            f"w1{tuple(w1.shape)}"
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    shapes = " ".join(f"{k}{tuple(t.shape)}" for k, t in tensors.items())
+    if x.dim() < 1 or any(w.dim() != 2 for w in weights):
+        raise ValueError(f"{name}: bad ranks {shapes}")
+    width = x.shape[-1]
+    for w, b in zip(weights, biases):
+        if (width < 1 or w.shape[1] != width or w.shape[0] < 1
+                or tuple(b.shape) != (w.shape[0],)):
+            raise ValueError(
+                f"{name}: inconsistent shapes {shapes} (weights in "
+                f"nn.Linear (out, in) layout)"
+            )
+        width = w.shape[0]
+
+
+def _launch(kernel: str, x2d, weights, out, dims: Tuple[int, ...]) -> None:
+    """Launch the C entry ``kernel`` on the current stream of x's device:
+    pointers of x2d, the weights (w0 first) and out, then ``dims``, the
+    entry's integer arguments in its own order. Raises when the launch is
+    refused."""
+    lib = _library()
+    with torch.cuda.device(x2d.device):
+        err = getattr(lib, kernel)(
+            *(t.data_ptr() for t in (x2d, *weights, out)), *dims,
+            torch.cuda.current_stream(x2d.device).cuda_stream,
         )
-    d_hidden, d_out = w0.shape[0], w1.shape[0]
-    if (w0.shape[1] != d_in or tuple(b0.shape) != (d_hidden,)
-            or tuple(w1.shape) != (d_out, d_hidden)
-            or tuple(b1.shape) != (d_out,) or d_hidden < 1 or d_out < 1):
-        raise ValueError(
-            f"fused_mlp: inconsistent shapes x{tuple(x.shape)} "
-            f"w0{tuple(w0.shape)} b0{tuple(b0.shape)} w1{tuple(w1.shape)} "
-            f"b1{tuple(b1.shape)} (weights in nn.Linear (out, in) layout)"
+    if err:
+        d_in, d_hidden = x2d.shape[1], weights[0].shape[0]
+        smem = getattr(lib, f"{kernel}_smem_bytes")(d_in, d_hidden)
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: "
+            f"{lib.fused_mlp_error_string(err).decode()} (x{tuple(x2d.shape)}, "
+            f"w0{tuple(weights[0].shape)}, out{tuple(out.shape)}, {smem} "
+            f"bytes of shared memory per block)"
         )
 
 
-def fused_mlp(x, w0, b0, w1, b1):
-    """y = relu(x @ w0.T + b0) @ w1.T + b1: plain PyTorch for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return fused_mlp_reference(x, w0, b0, w1, b1)
-    if x.device.type != "cuda":
+def _device_type(x) -> str:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"fused_mlp takes CPU or CUDA tensors, got device {x.device}"
         )
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, w0, b0, w1, b1)
-    ):
-        raise NotImplementedError(
-            "fused_mlp on CUDA is forward-only: its backward (the hidden "
-            "recompute kernel and an autograd.Function) comes with the "
-            "training slice (ROADMAP.md, queue 2). Call it under "
-            "torch.inference_mode() or torch.no_grad()."
-        )
-    _check(x, w0, b0, w1, b1)
+    return x.device.type
+
+
+def _forward(x, w0, b0, w1, b1):
+    """The forward without autograd: plain PyTorch for CPU tensors, the
+    CUDA kernel for CUDA tensors."""
+    if _device_type(x) == "cpu":
+        return fused_mlp_reference(x, w0, b0, w1, b1)
+    _check("fused_mlp", x, (w0, w1), (b0, b1))
     d_in, d_hidden, d_out = x.shape[-1], w0.shape[0], w1.shape[0]
     x2d = x.reshape(-1, d_in)
     rows = x2d.shape[0]
     out = torch.empty((rows, d_out), dtype=torch.float32, device=x.device)
     if rows:
-        lib = _library()
-        with torch.cuda.device(x.device):
-            err = lib.fused_mlp_fwd(
-                x2d.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-                b1.data_ptr(), out.data_ptr(), rows, d_in, d_hidden, d_out,
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        if err:
-            smem = lib.fused_mlp_fwd_smem_bytes(d_in, d_hidden)
-            raise RuntimeError(
-                f"fused_mlp kernel launch failed: "
-                f"{lib.fused_mlp_error_string(err).decode()} (rows={rows}, "
-                f"d_in={d_in}, d_hidden={d_hidden}, d_out={d_out}, "
-                f"{smem} bytes of shared memory per block)"
-            )
+        _launch("fused_mlp_fwd", x2d, (w0, b0, w1, b1), out,
+                (rows, d_in, d_hidden, d_out))
         fused_mlp.launches += 1
     return out.reshape(*x.shape[:-1], d_out)
+
+
+def fused_mlp_hidden(x, w0, b0):
+    """h = relu(x @ w0.T + b0): plain PyTorch for CPU tensors, the CUDA
+    kernel for CUDA tensors. The backward's recompute of the hidden layer;
+    never differentiated itself."""
+    if _device_type(x) == "cpu":
+        return fused_mlp_hidden_reference(x, w0, b0)
+    _check("fused_mlp_hidden", x, (w0,), (b0,))
+    d_in, d_hidden = x.shape[-1], w0.shape[0]
+    x2d = x.reshape(-1, d_in)
+    rows = x2d.shape[0]
+    h = torch.empty((rows, d_hidden), dtype=torch.float32, device=x.device)
+    if rows:
+        _launch("fused_mlp_hidden", x2d, (w0, b0), h, (rows, d_in, d_hidden))
+        fused_mlp_hidden.launches += 1
+    return h.reshape(*x.shape[:-1], d_hidden)
+
+
+fused_mlp_hidden.launches = 0
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """``fused_mlp`` under autograd. The forward keeps x and the weights,
+    not the (rows, H) hidden activation; the backward rebuilds it with
+    ``fused_mlp_hidden`` and forms the gradients with plain matrix products,
+    as ``_fused_mlp_bwd`` leaves them to XLA."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, w1, b1):
+        ctx.save_for_backward(x, w0, b0, w1, b1)
+        return _forward(x, w0, b0, w1, b1)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w0, b0, w1, b1 = ctx.saved_tensors
+        x2d = x.reshape(-1, x.shape[-1])
+        g2d = g.reshape(-1, g.shape[-1])
+        h = fused_mlp_hidden(x2d, w0, b0)
+        # dL/dh through the second linear, gated by the ReLU mask
+        dh = (g2d @ w1) * (h > 0.0)
+        dw1 = g2d.T @ h
+        db1 = torch.sum(g2d, dim=0)
+        dw0 = dh.T @ x2d
+        db0 = torch.sum(dh, dim=0)
+        dx = (dh @ w0).reshape(x.shape)
+        return dx, dw0, db0, dw1, db1
+
+
+def fused_mlp(x, w0, b0, w1, b1):
+    """y = relu(x @ w0.T + b0) @ w1.T + b1: plain PyTorch for CPU tensors,
+    the CUDA kernel for CUDA tensors; through ``FusedMLPFunction`` when
+    autograd needs a gradient."""
+    _device_type(x)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w0, b0, w1, b1)
+    ):
+        return FusedMLPFunction.apply(x, w0, b0, w1, b1)
+    return _forward(x, w0, b0, w1, b1)
 
 
 fused_mlp.launches = 0

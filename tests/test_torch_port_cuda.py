@@ -1,4 +1,6 @@
-"""The CUDA fused-MLP kernel against its plain PyTorch version, on the card.
+"""The CUDA fused-MLP kernels against their plain PyTorch versions, on the
+card: the forward, the hidden-layer recompute, and the gradients of
+FusedMLPFunction against autograd through the plain forward.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no jax, since the machine with the card has none;
@@ -6,14 +8,20 @@ run it there without the repository's conftest (which imports jax):
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
-Tolerance rtol 1e-5 / atol 1e-5, as in tests/test_pallas_mlp.py: both
-sides are full f32 (TF32 off) and differ only in summation order.
+Tolerances as in tests/test_pallas_mlp.py: rtol 1e-5 / atol 1e-5 for
+values, rtol 1e-4 / atol 1e-5 for gradients. Both sides are full f32
+(TF32 off) and differ only in summation order.
 """
 
 import pytest
 import torch
 
-from dpivae_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
+from dpivae_tpu_torch.ops.fused_mlp import (
+    fused_mlp,
+    fused_mlp_hidden,
+    fused_mlp_hidden_reference,
+    fused_mlp_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,7 +42,7 @@ def _inputs(device, lead, d_in, d_hidden, d_out, seed=0):
             f(d_out, d_hidden) * 0.3, f(d_out) * 0.1)
 
 
-@pytest.mark.parametrize("lead, d_in, d_hidden, d_out", [
+SHAPES = [
     ((262_144,), 4, 128, 32),    # serving: 512 requests x 512 MC
     ((1_024,), 4, 128, 32),      # training: 16 MC x 64 batch
     ((1_000,), 4, 128, 32),      # ragged tail
@@ -42,7 +50,10 @@ def _inputs(device, lead, d_in, d_hidden, d_out, seed=0):
     ((16, 125), 4, 128, 32),     # leading dims
     ((777,), 7, 100, 33),        # odd widths: scalar stores, partial chunk
     ((500,), 6, 64, 80),         # d_out over several column tiles
-])
+]
+
+
+@pytest.mark.parametrize("lead, d_in, d_hidden, d_out", SHAPES)
 def test_kernel_matches_plain(device, lead, d_in, d_hidden, d_out):
     args = _inputs(device, lead, d_in, d_hidden, d_out)
     before = fused_mlp.launches
@@ -54,13 +65,39 @@ def test_kernel_matches_plain(device, lead, d_in, d_hidden, d_out):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_gradient_request_raises(device):
-    x, w0, b0, w1, b1 = _inputs(device, (64,), 4, 128, 32)
-    w0.requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_mlp(x, w0, b0, w1, b1)
-    with torch.no_grad():
-        fused_mlp(x, w0, b0, w1, b1)
+@pytest.mark.parametrize("lead, d_in, d_hidden, d_out", SHAPES)
+def test_hidden_kernel_matches_plain(device, lead, d_in, d_hidden, d_out):
+    x, w0, b0, _, _ = _inputs(device, lead, d_in, d_hidden, d_out)
+    before = fused_mlp_hidden.launches
+    got = fused_mlp_hidden(x, w0, b0)
+    torch.cuda.synchronize()
+    assert fused_mlp_hidden.launches == before + 1
+    assert got.shape == (*lead, d_hidden)
+    torch.testing.assert_close(got, fused_mlp_hidden_reference(x, w0, b0),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lead, d_in, d_hidden, d_out", [
+    ((1_024,), 4, 128, 32),      # training
+    ((16, 125), 4, 128, 32),     # leading dims
+    ((777,), 7, 100, 33),        # odd widths
+])
+def test_gradient_matches_plain_autograd(device, lead, d_in, d_hidden, d_out):
+    """Under autograd fused_mlp goes through FusedMLPFunction: one forward
+    launch, one hidden-recompute launch in the backward, and the five
+    gradients of autograd through the plain forward."""
+    args = [t.requires_grad_() for t in
+            _inputs(device, lead, d_in, d_hidden, d_out)]
+    g = torch.randn((*lead, d_out), device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    fwd, hidden = fused_mlp.launches, fused_mlp_hidden.launches
+    got = torch.autograd.grad(fused_mlp(*args), args, g)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp_hidden.launches) == (fwd + 1,
+                                                              hidden + 1)
+    want = torch.autograd.grad(fused_mlp_reference(*args), args, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_bad_inputs_raise(device):
@@ -74,3 +111,6 @@ def test_bad_inputs_raise(device):
     with pytest.raises(RuntimeError, match="launch failed"):
         big = _inputs(device, (64,), 4, 4096, 32)
         fused_mlp(*big)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        huge = _inputs(device, (64,), 64, 4096, 32)
+        fused_mlp_hidden(*huge[:3])

@@ -14,7 +14,7 @@ from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.models.vae import DPIVAE
 from dpivae_tpu_torch.serving import Predictor
-from dpivae_tpu_torch.train import init_params, setup_model
+from dpivae_tpu_torch.train import init_params, setup_model, train_model
 from dpivae_tpu_torch.utils.data import sample_response
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,12 +55,13 @@ def _entry_points():
         "DPIVAE.init": lambda: model.init(gen),
         "init_params": lambda: init_params(cfg, model),
         "Predictor": lambda: Predictor(model, params, cfg),
+        "train_model": lambda: train_model(cfg, model, case, data, data),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "sample_response", "setup_model", "DPIVAE.init", "init_params",
-    "Predictor"])
+    "Predictor", "train_model"])
 def test_entry_point_without_device_needs_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")

@@ -216,12 +216,6 @@ def test_unported_variants_raise(change):
         dataclasses.replace(model, **change)
 
 
-def test_loss_is_not_ported_yet():
-    _, (_, model, params) = _models(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(params)
-
-
 @pytest.mark.parametrize("use_pallas, resolved", [
     (True, True), (False, False), ("auto", False)])
 def test_use_pallas_resolution(use_pallas, resolved):

@@ -1,5 +1,6 @@
-"""dpivae_tpu_torch's math against dpivae_tpu's, on the CPU: the fused MLP,
-MVN sampling and density, gradient reversal, transforms with their
+"""dpivae_tpu_torch's math against dpivae_tpu's, on the CPU: the fused MLP
+with its backward (the hidden recompute and the autograd function), MVN
+sampling and density, gradient reversal, transforms with their
 log-dets, beam physics, the frozen surrogate and the distributions.
 
 Inputs come from numpy with a seed and go through both packages. Unless a
@@ -22,7 +23,13 @@ from dpivae_tpu.utils import distributions as jax_dist
 from dpivae_tpu.utils import transforms as jax_tf
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.ops import mvn
-from dpivae_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
+from dpivae_tpu_torch.ops.fused_mlp import (
+    FusedMLPFunction,
+    fused_mlp,
+    fused_mlp_hidden,
+    fused_mlp_hidden_reference,
+    fused_mlp_reference,
+)
 from dpivae_tpu_torch.ops.gradrev import grad_reverse, maybe_grad_reverse
 from dpivae_tpu_torch.physics import euler_bernoulli_point_load
 from dpivae_tpu_torch.utils import distributions as dist
@@ -80,10 +87,52 @@ def test_fused_mlp_cpu_gradient_flows():
         _close(got, ref, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("lead", [(64,), (4, 16)])
+def test_fused_mlp_function_matches_jax_custom_vjp(lead):
+    """FusedMLPFunction's forward and backward against the JAX fused_mlp's
+    custom VJP (_fused_mlp_fwd/_fused_mlp_bwd) for one cotangent. On the
+    CPU both recompute the hidden layer with their plain versions."""
+    x, w0, b0, w1, b1 = _mlp_inputs(lead)
+    g = np.random.default_rng(9).standard_normal((*lead, 32)).astype(np.float32)
+    want_y, vjp = jax.vjp(jax_fused_mlp,
+                          *(jnp.asarray(a) for a in (x, w0, b0, w1, b1)))
+    want = vjp(jnp.asarray(g))
+    args = [_t(a).requires_grad_() for a in (x, w0.T, b0, w1.T, b1)]
+    y = FusedMLPFunction.apply(*args)
+    assert type(y.grad_fn).__name__ == "FusedMLPFunctionBackward"
+    _close(y, want_y)
+    grads = torch.autograd.grad(y, args, _t(g))
+    for got, ref in zip((grads[0], grads[1].T, grads[2], grads[3].T, grads[4]),
+                        want):
+        assert got.shape == ref.shape
+        _close(got, ref, rtol=1e-4, atol=1e-5)
+    # fused_mlp takes the autograd function exactly when a gradient is
+    # needed, and the plain forward otherwise.
+    assert type(fused_mlp(*args).grad_fn).__name__ == "FusedMLPFunctionBackward"
+    with torch.no_grad():
+        assert fused_mlp(*args).grad_fn is None
+
+
+@pytest.mark.parametrize("lead", [(1000,), (8, 125)])
+def test_fused_mlp_hidden_matches_jax_plain_math(lead):
+    """The recompute against the plain branch of _fused_mlp_bwd, the math of
+    _pallas_hidden: relu(x @ w0 + b0)."""
+    x, w0, b0, _, _ = _mlp_inputs(lead)
+    want = jnp.maximum(jnp.asarray(x) @ jnp.asarray(w0) + jnp.asarray(b0), 0.0)
+    before = fused_mlp_hidden.launches
+    got = fused_mlp_hidden(_t(x), _t(w0.T), _t(b0))
+    assert got.shape == (*lead, 128)
+    _close(got, want)
+    assert torch.equal(got, fused_mlp_hidden_reference(_t(x), _t(w0.T), _t(b0)))
+    assert fused_mlp_hidden.launches == before
+
+
 def test_fused_mlp_rejects_other_devices():
     args = [_t(a).to("meta") for a in _mlp_inputs((4,))]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fused_mlp(*args)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_mlp_hidden(*args[:3])
 
 
 def _tril(rng, lead, d):
