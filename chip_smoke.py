@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero before the result line:
 
 1. Device: requires CUDA, prints the card's name and power limit, turns
-   TF32 off so every f32 product is full f32.
+   TF32 off so every f32 product of the plain versions is full f32.
 2. Build: compiles ``dpivae_tpu_torch/csrc/fused_mlp.cu`` (both kernels)
    with nvcc for sm_90a into ``build/dpivae_tpu_torch/`` and prints the
    build time and ptxas's register/shared-memory report.
@@ -14,12 +14,21 @@ Phases; any failure exits non-zero before the result line:
    the fused-MLP forward kernel at the serving shape (512 requests x 512
    MC samples = 262,144 rows x (4 -> 128 -> 32)), the validation shape
    (512 points x 64 MC), the training shape (64 x 16 MC), a ragged row
-   count and hidden 256; the hidden-recompute kernel at the training
-   shape, a ragged row count and 65,536 x (4 -> 256), also against the
-   one library call that computes it (torch._addmm_activation: GEMM with
-   a bias + ReLU epilogue); and
-   FusedMLPFunction's backward against autograd through the plain forward
-   at the training shape.
+   count, the row counts on either side of the forward's switch from its
+   split to its staged path, and hidden 256, 512 and 1,024, each with two
+   least-time bounds (layer 2 in f32 on the CUDA cores, and on the TF32
+   tensor cores in three passes) and, at the serving, validation and
+   training shapes, beside the two-call cuBLASLt pair
+   torch._addmm_activation then torch.addmm as a yardstick (the port
+   never calls it); the hidden-recompute kernel at the training shape, a
+   ragged row count and 65,536 x (4 -> 256), also against the one library
+   call that computes it (torch._addmm_activation: GEMM with a bias + ReLU
+   epilogue) and beside a fill_ of the same output (the card's practical
+   write rate); and FusedMLPFunction's backward against autograd through
+   the plain forward at the training shape. Then both forward paths, each
+   forced, at 1,024, 8,192, 16,384 and 32,768 rows: the measurement
+   behind the launcher's switch between them. Last, the forward and plain
+   f32 each against float64 at H = 256 to 1,024 (printed, not checked).
 4. Serving path: simple_beam / "dpivae" preset with use_pallas=True at
    full width, random weights from a seed; a Predictor answers requests
    of n_test = 512 points with n_mc_test = 512 MC samples. The forward
@@ -28,7 +37,9 @@ Phases; any failure exits non-zero before the result line:
    with a use_pallas=False model of the same weights under the same seeds.
    Each model's per-request time is taken in alternating turns.
 5. Serving profile: torch.profiler's device view of one request (busy
-   share, top kernels) and the forward kernel's device time per launch.
+   share, top kernels), the forward kernel's device time per launch at the
+   serving, training and 65,536 x (4 -> 256 -> 32) shapes, and the hidden
+   kernel's at 65,536 x (4 -> 256).
 6. Training path: ``train_model`` on simple_beam / "dpivae" with
    use_pallas=True at full width (n_train 1,024, batch 64, 16 MC samples,
    validation of 512 points x 64 MC every 10 iterations, as bench.py
@@ -42,8 +53,11 @@ Phases; any failure exits non-zero before the result line:
 7. Prints a ``{"kernels": [...]}`` line and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
-1e-5, as in tests/test_pallas_mlp.py: both sides are full f32 and differ
-only in summation order. Through the predictor only x_sample and xh_d see
+1e-5, as in tests/test_pallas_mlp.py. The plain versions are full f32;
+the kernels compute layer 1 in f32 and the forward's layer 2 in the
+3xTF32 split, which keeps about 21 bits of each product, so the two
+differ by little more than summation order; the errors printed are the
+kernel's own on the card. Through the predictor only x_sample and xh_d see
 the kernel, averaged over 512 samples. The training rows get rtol / atol
 1e-4: ten Adam steps carry the summation-order differences of every
 step's gradients forward.
@@ -69,9 +83,11 @@ N_ITER = 2_000   # cut from the preset's 20,000 for the time limit
 N_ROWS_COMPARED = 10
 N_REQUESTS = 3
 N_TIMED_REQUESTS = 20
-# Least-time bound: H100 SXM published peaks
-# (f32 outside the tensor cores; HBM3), at the full 700 W power limit.
+# Least-time bound: H100 SXM published peaks (f32 outside the tensor
+# cores; dense TF32 on the tensor cores; HBM3), at the full 700 W power
+# limit.
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # (rows, d_in, d_hidden, d_out); "serving" and "training" are the shapes of
 # the serving and training paths.
@@ -80,8 +96,27 @@ SHAPES = {
     "validation": (32_768, 4, 128, 32),
     "training": (1_024, 4, 128, 32),
     "ragged": (1_000, 4, 128, 32),
+    # the last row count of the forward's split path, and the first of
+    # its staged path
+    "split_edge": (8_192, 4, 128, 32),
+    "staged_edge": (16_384, 4, 128, 32),
     "hidden256": (65_536, 4, 256, 32),
+    # hidden widths of the scaling study: H = 512 on the staged path;
+    # H = 1,024, whose staged weights exceed one block's shared memory, on
+    # the split path at every row count
+    "hidden512": (32_768, 4, 512, 32),
+    "hidden1024": (32_768, 4, 1_024, 32),
 }
+# Row counts at 4 -> 128 -> 32 where the forward runs on each of its two
+# paths, forced, against plain: two on each side of the launcher's switch.
+PATH_ROWS = (1_024, 8_192, 16_384, 32_768)
+# (rows, d_in, d_hidden, d_out) where the forward and plain are each held
+# against float64 with the CUDA tests' fixed weight scale (W1 0.3 at every
+# H), printed and not checked.
+F64_SHAPES = ((65_536, 4, 256, 32), (32_768, 4, 512, 32),
+              (32_768, 4, 1_024, 32), (4_096, 8, 1_024, 64))
+# Forward shapes timed beside the cuBLASLt pair.
+PAIR_SHAPES = ("serving", "validation", "training")
 # (rows, d_in, d_hidden) of the hidden-recompute kernel; "training" is the
 # training path's shape.
 HIDDEN_SHAPES = {
@@ -131,12 +166,20 @@ def _device_ms(fn, reps: int = 25, inner: int = 10) -> float:
 
 
 def _bound_ms(rows, d_in, d_hidden, d_out):
-    flops = 2 * rows * (d_in * d_hidden + d_hidden * d_out)
+    """The forward's two least times, each (ms, what bounds it): both
+    layers in f32 on the CUDA cores; and layer 2 on the TF32 tensor cores
+    in the three passes of the 3xTF32 split, layer 1 on the CUDA cores.
+    The second is the kernel's bound."""
+    layer1 = 2 * rows * d_in * d_hidden
+    layer2 = 2 * rows * d_hidden * d_out
     n_bytes = 4 * (rows * d_in + rows * d_out
                    + d_hidden * d_in + d_hidden + d_out * d_hidden + d_out)
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_f32 = (layer1 + layer2) / F32_FLOPS_PER_S
+    t_tensor = max(3 * layer2 / TF32_FLOPS_PER_S, layer1 / F32_FLOPS_PER_S)
+    return tuple((1e3 * max(t, t_bytes),
+                  "operations" if t >= t_bytes else "bytes")
+                 for t in (t_f32, t_tensor))
 
 
 def _hidden_bound_ms(rows, d_in, d_hidden):
@@ -171,6 +214,13 @@ def _hidden_library(x, w0, b0):
     return torch._addmm_activation(b0, x, w0.t())
 
 
+def _forward_library(x, w0, b0, w1, b1):
+    """The forward in two PyTorch calls, cuBLASLt GEMMs with a bias + ReLU
+    epilogue and then a bias: a yardstick only, since no one call computes
+    both layers; the port never calls it."""
+    return torch.addmm(b1, torch._addmm_activation(b0, x, w0.t()), w1.t())
+
+
 def _hidden_vs_plain(ops, failures):
     results = {}
     for i, (name, (rows, d_in, d_hidden)) in enumerate(HIDDEN_SHAPES.items()):
@@ -188,13 +238,15 @@ def _hidden_vs_plain(ops, failures):
             ms = _device_ms(lambda: ops.fused_mlp_hidden(*args))
             plain_ms = _device_ms(lambda: ops.fused_mlp_hidden_reference(*args))
             library_ms = _device_ms(lambda: _hidden_library(*args))
+            # The card's practical write rate: a fill of the same bytes.
+            fill_ms = _device_ms(lambda: got.fill_(1.0))
         bound_ms, bound_by = _hidden_bound_ms(rows, d_in, d_hidden)
         print(f"hidden kernel {name} {rows}x({d_in}->{d_hidden}): "
               f"max_abs_err {max_abs:.3e} (rtol {RTOL} atol {ATOL}) "
               f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library (_addmm_activation, max_abs_err "
               f"{lib_abs:.3e}) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by})")
+              f"({bound_by}), fill_ of the same output {fill_ms:.4f} ms")
         if not ok:
             failures.append(f"fused_mlp_hidden disagrees with plain at {name}")
         if not lib_ok:
@@ -246,7 +298,7 @@ def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
         g = torch.Generator(device="cuda").manual_seed(SEED + i)
         f = lambda *s: torch.randn(s, generator=g, device="cuda")
         args = (f(rows, d_in), f(d_hidden, d_in) * 0.3, f(d_hidden) * 0.1,
-                f(d_out, d_hidden) * 0.3, f(d_out) * 0.1)
+                f(d_out, d_hidden) * _w1_scale(d_hidden), f(d_out) * 0.1)
         with torch.inference_mode():
             got = fused_mlp(*args)
             want = fused_mlp_reference(*args)
@@ -257,17 +309,92 @@ def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
             ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
             ms = _device_ms(lambda: fused_mlp(*args))
             plain_ms = _device_ms(lambda: fused_mlp_reference(*args))
-        bound_ms, bound_by = _bound_ms(rows, d_in, d_hidden, d_out)
+            if name in PAIR_SHAPES:
+                lib = _forward_library(*args)
+                lib_abs = float((lib - want).abs().max())
+                if not torch.allclose(lib, want, rtol=RTOL, atol=ATOL):
+                    failures.append(f"the cuBLASLt pair disagrees with plain "
+                                    f"at {name}: its time is not of the same "
+                                    f"function")
+                pair_ms = _device_ms(lambda: _forward_library(*args))
+        (f32_ms, f32_by), (bound_ms, bound_by) = _bound_ms(
+            rows, d_in, d_hidden, d_out)
         print(f"kernel {name} {rows}x({d_in}->{d_hidden}->{d_out}): "
               f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
               f"(rtol {RTOL} atol {ATOL}) {'ok' if ok else 'MISMATCH'}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}; layer 2 3xTF32 on the "
+              f"tensor cores, {100 * bound_ms / ms:.1f} % of it reached), "
+              f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by})")
+        if name in PAIR_SHAPES:
+            print(f"  yardstick {name}: cuBLASLt pair (_addmm_activation + "
+                  f"addmm, max_abs_err {lib_abs:.3e}) {pair_ms:.4f} ms "
+                  f"against the kernel's {ms:.4f} ms")
         if not ok:
             failures.append(f"fused_mlp disagrees with plain at {name}")
         results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
     return results
+
+
+def _w1_scale(d_hidden):
+    """W1's scale, as in tests/test_torch_port_cuda.py: 0.3, and above
+    H = 256 smaller, so that the outputs keep H = 256's spread."""
+    return 0.3 * min(1.0, (256 / d_hidden) ** 0.5)
+
+
+def _against_f64(ops):
+    """The forward and plain f32 each against float64 at W1 scale 0.3, so
+    outputs spread as √H: printed, not checked. Where the kernel misses
+    rtol/atol 1e-5 against plain, this says whether plain f32 itself
+    misses it against float64 there."""
+    for rows, d_in, d_hidden, d_out in F64_SHAPES:
+        f = _randn(SEED + 40)
+        args = (f(rows, d_in), f(d_hidden, d_in) * 0.3, f(d_hidden) * 0.1,
+                f(d_out, d_hidden) * 0.3, f(d_out) * 0.1)
+        with torch.inference_mode():
+            got = ops.fused_mlp(*args)
+            plain = ops.fused_mlp_reference(*args)
+            exact = ops.fused_mlp_reference(*(a.double() for a in args))
+            torch.cuda.synchronize()
+
+            def miss(a, b):
+                b = b.to(a.dtype)
+                return (float((a - b).abs().max()), int((~torch.isclose(
+                    a, b, rtol=RTOL, atol=ATOL)).sum()))
+
+            (kp, kp_n), (kx, kx_n), (px, px_n) = (
+                miss(got, plain), miss(got.double(), exact),
+                miss(plain.double(), exact))
+        print(f"float64 check {rows}x({d_in}->{d_hidden}->{d_out}), W1 0.3, "
+              f"output std {float(exact.std()):.2f}: max_abs_err (elements "
+              f"outside rtol/atol {RTOL}) kernel vs plain {kp:.3e} ({kp_n}), "
+              f"kernel vs f64 {kx:.3e} ({kx_n}), plain vs f64 {px:.3e} "
+              f"({px_n})")
+
+
+def _paths_vs_plain(ops, failures):
+    """The forward's split and staged paths, each forced, against plain
+    and against each other, at row counts on both sides of the switch."""
+    for rows in PATH_ROWS:
+        f = _randn(SEED + 30)
+        args = (f(rows, 4), f(128, 4) * 0.3, f(128) * 0.1, f(32, 128) * 0.3,
+                f(32) * 0.1)
+        with torch.inference_mode():
+            want = ops.fused_mlp_reference(*args)
+            line = []
+            for staged in (False, True):
+                got = ops.fused_mlp_on_path(*args, staged=staged)
+                torch.cuda.synchronize()
+                name = "staged" if staged else "split"
+                if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                    failures.append(f"the {name} path disagrees with plain "
+                                    f"at {rows} rows")
+                ms = _device_ms(lambda: ops.fused_mlp_on_path(
+                    *args, staged=staged))
+                line.append(f"{name} {ms:.4f} ms (max_abs_err "
+                            f"{float((got - want).abs().max()):.3e})")
+        print(f"forward paths {rows}x(4->128->32): {', '.join(line)}")
 
 
 def _main_path(ops, failures):
@@ -393,10 +520,12 @@ def _per_launch(events, kernel, what):
               f"launch (x{mine[0].count})")
 
 
-def _profile(predictor, request, fused_mlp, request_ms):
+def _profile(predictor, request, fused_mlp, fused_mlp_hidden, request_ms):
     """Device-side view from torch.profiler: one warm request's kernels and
-    device busy share, and the fused-MLP kernel's own device time per launch
-    at the serving and training shapes. Runs after the counted serving path."""
+    device busy share, the fused-MLP kernel's own device time per launch at
+    the serving, training and 65,536 x (4 -> 256 -> 32) shapes, and the
+    hidden kernel's at 65,536 x (4 -> 256). Runs after the counted serving
+    path."""
     from torch.profiler import ProfilerActivity, profile
 
     x, c = request
@@ -408,20 +537,25 @@ def _profile(predictor, request, fused_mlp, request_ms):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     _print_profile("one request", _device_events(prof), wall_ms, request_ms)
 
-    for name in ("serving", "training"):
+    for name in ("serving", "training", "hidden256"):
         rows, d_in, d_hidden, d_out = SHAPES[name]
         f = _randn(SEED)
         args = (f(rows, d_in), f(d_hidden, d_in), f(d_hidden),
                 f(d_out, d_hidden), f(d_out))
-        with torch.inference_mode():
-            fused_mlp(*args)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fused_mlp(*args)
+        calls = [("fused_mlp_fwd_kernel", fused_mlp, args,
+                  f"{name} {rows}x({d_in}->{d_hidden}->{d_out})")]
+        if name == "hidden256":
+            calls.append(("fused_mlp_hidden_kernel", fused_mlp_hidden,
+                          args[:3], f"{name} {rows}x({d_in}->{d_hidden})"))
+        for kernel, fn, fn_args, what in calls:
+            with torch.inference_mode():
+                fn(*fn_args)
                 torch.cuda.synchronize()
-        _per_launch(_device_events(prof), "fused_mlp_fwd_kernel",
-                    f"{name} {rows}x({d_in}->{d_hidden}->{d_out})")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        fn(*fn_args)
+                    torch.cuda.synchronize()
+            _per_launch(_device_events(prof), kernel, what)
 
 
 def _training(ops, failures):
@@ -575,15 +709,23 @@ def main() -> int:
                 or "Compiling entry" in line):
             print(f"  ptxas: {line.strip()}")
 
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    lib = ops._library()
+    print("staged forward, shared memory per block at d_in 4: " + ", ".join(
+        f"H {h} {lib.fused_mlp_fwd_smem_bytes(4, h)} B" for h in (128, 512, 1024))
+        + f" (limit {limit} B; above it the split path runs)")
+
     results = _kernel_vs_plain(ops.fused_mlp, ops.fused_mlp_reference,
                                failures)
     hidden = _hidden_vs_plain(ops, failures)
     backward = _backward_vs_plain(ops, failures)
+    _paths_vs_plain(ops, failures)
+    _against_f64(ops)
     serve_launches, req_ms, req_plain_ms, predictor, request = _main_path(ops, failures)
     print(f"per request ({card}): kernel model {req_ms:.3f} ms, "
           f"plain model {req_plain_ms:.3f} ms "
           f"(warm median of {N_TIMED_REQUESTS})")
-    _profile(predictor, request, ops.fused_mlp, req_ms)
+    _profile(predictor, request, ops.fused_mlp, ops.fused_mlp_hidden, req_ms)
     (fwd_launches, hidden_launches), steps_s, setup = _training(ops, failures)
     print(f"training steps/s ({card}): kernel model {steps_s['kernel']:.1f}, "
           f"plain model {steps_s['plain']:.1f} (n_iter {N_ITER})")

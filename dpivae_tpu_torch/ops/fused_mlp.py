@@ -9,8 +9,9 @@ device of ``x``:
 - a CPU tensor goes to ``fused_mlp_reference``, the plain PyTorch version
   (the counterpart of ``_reference_mlp``);
 - a CUDA tensor goes to the hand-written kernel in ``csrc/fused_mlp.cu``
-  (the counterpart of the TPU kernel ``_mlp_kernel``), built with ``nvcc``
-  for ``sm_90a`` at first use into ``build/dpivae_tpu_torch/`` and bound
+  (the counterpart of the TPU kernel ``_mlp_kernel``; its second layer
+  runs on the TF32 tensor cores in the f32-accurate 3xTF32 split), built
+  with ``nvcc`` for ``sm_90a`` at first use into ``build/dpivae_tpu_torch/`` and bound
   through its plain C interface with ``ctypes``. A build or launch failure
   raises; nothing falls back to the plain version on the card.
 
@@ -104,11 +105,13 @@ def build_library() -> Tuple[Path, str]:
 def _library() -> ctypes.CDLL:
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
-    lib.fused_mlp_fwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+    fwd_dims = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.fused_mlp_fwd.argtypes = [ctypes.c_void_p] * 6 + fwd_dims + [
+        ctypes.c_void_p]
     lib.fused_mlp_fwd.restype = ctypes.c_int
+    lib.fused_mlp_fwd_on_path.argtypes = [ctypes.c_void_p] * 6 + fwd_dims + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.fused_mlp_fwd_on_path.restype = ctypes.c_int
     lib.fused_mlp_hidden.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
@@ -160,13 +163,11 @@ def _launch(kernel: str, x2d, weights, out, dims: Tuple[int, ...]) -> None:
             torch.cuda.current_stream(x2d.device).cuda_stream,
         )
     if err:
-        d_in, d_hidden = x2d.shape[1], weights[0].shape[0]
-        smem = getattr(lib, f"{kernel}_smem_bytes")(d_in, d_hidden)
         raise RuntimeError(
             f"{kernel} kernel launch failed: "
             f"{lib.fused_mlp_error_string(err).decode()} (x{tuple(x2d.shape)}, "
-            f"w0{tuple(weights[0].shape)}, out{tuple(out.shape)}, {smem} "
-            f"bytes of shared memory per block)"
+            f"w0{tuple(weights[0].shape)}, out{tuple(out.shape)}, "
+            f"arguments {dims})"
         )
 
 
@@ -178,9 +179,10 @@ def _device_type(x) -> str:
     return x.device.type
 
 
-def _forward(x, w0, b0, w1, b1):
+def _forward(x, w0, b0, w1, b1, path=None):
     """The forward without autograd: plain PyTorch for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
+    CUDA kernel for CUDA tensors, on the path the launcher picks or, for
+    ``path`` 0 or 1, on its split or staged path."""
     if _device_type(x) == "cpu":
         return fused_mlp_reference(x, w0, b0, w1, b1)
     _check("fused_mlp", x, (w0, w1), (b0, b1))
@@ -189,10 +191,25 @@ def _forward(x, w0, b0, w1, b1):
     rows = x2d.shape[0]
     out = torch.empty((rows, d_out), dtype=torch.float32, device=x.device)
     if rows:
-        _launch("fused_mlp_fwd", x2d, (w0, b0, w1, b1), out,
-                (rows, d_in, d_hidden, d_out))
+        dims = (rows, d_in, d_hidden, d_out)
+        if path is None:
+            _launch("fused_mlp_fwd", x2d, (w0, b0, w1, b1), out, dims)
+        else:
+            _launch("fused_mlp_fwd_on_path", x2d, (w0, b0, w1, b1), out,
+                    (*dims, path))
         fused_mlp.launches += 1
     return out.reshape(*x.shape[:-1], d_out)
+
+
+def fused_mlp_on_path(x, w0, b0, w1, b1, staged: bool):
+    """The forward kernel on its staged path (``staged=True``) or its split
+    path, whatever the row count: for timing the two paths against each
+    other at one shape. The port's own calls go through ``fused_mlp``,
+    whose launcher picks the path. CUDA tensors only; no autograd."""
+    if _device_type(x) != "cuda":
+        raise ValueError("fused_mlp_on_path takes CUDA tensors; the plain "
+                         "version has no paths")
+    return _forward(x, w0, b0, w1, b1, path=int(staged))
 
 
 def fused_mlp_hidden(x, w0, b0):

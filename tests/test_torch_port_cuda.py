@@ -9,8 +9,12 @@ run it there without the repository's conftest (which imports jax):
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Tolerances as in tests/test_pallas_mlp.py: rtol 1e-5 / atol 1e-5 for
-values, rtol 1e-4 / atol 1e-5 for gradients. Both sides are full f32
-(TF32 off) and differ only in summation order.
+values, rtol 1e-4 / atol 1e-5 for gradients. The plain side is full f32
+(TF32 off); the kernels compute layer 1 in f32 and the forward's layer 2
+on the TF32 tensor cores in the 3xTF32 split, which keeps about 21 bits
+of each product. The kernel's own error is measured only here and in
+chip_smoke.py (tests/test_torch_port_ops.py shows, on an f32 model of
+the arithmetic, that one TF32 pass misses 1e-5 and the split does not).
 """
 
 import pytest
@@ -20,6 +24,7 @@ from dpivae_tpu_torch.ops.fused_mlp import (
     fused_mlp,
     fused_mlp_hidden,
     fused_mlp_hidden_reference,
+    fused_mlp_on_path,
     fused_mlp_reference,
 )
 
@@ -36,10 +41,17 @@ def device():
 
 
 def _inputs(device, lead, d_in, d_hidden, d_out, seed=0):
+    """x standard normal, W0 and W1 at scale 0.3, biases 0.1; above
+    H = 256, W1 at 0.3 * sqrt(256 / H), so that the outputs keep
+    H = 256's spread. At 0.3 they spread as sqrt(H), and at H = 1,024 two
+    f32 summation orders then differ by over atol 1e-5 where an output
+    crosses zero (chip_smoke.py holds the kernel and plain each against
+    float64 there)."""
     g = torch.Generator(device=device).manual_seed(seed)
     f = lambda *s: torch.randn(s, generator=g, device=device)
+    w1_scale = 0.3 * min(1.0, (256 / d_hidden) ** 0.5)
     return (f(*lead, d_in), f(d_hidden, d_in) * 0.3, f(d_hidden) * 0.1,
-            f(d_out, d_hidden) * 0.3, f(d_out) * 0.1)
+            f(d_out, d_hidden) * w1_scale, f(d_out) * 0.1)
 
 
 SHAPES = [
@@ -50,6 +62,24 @@ SHAPES = [
     ((16, 125), 4, 128, 32),     # leading dims
     ((777,), 7, 100, 33),        # odd widths: scalar stores, partial chunk
     ((500,), 6, 64, 80),         # d_out over several column tiles
+    ((1,), 4, 128, 32),          # m16 tile edges: one row,
+    ((15,), 4, 128, 32),         # ... one short of a tile,
+    ((17,), 4, 128, 32),         # ... one past it,
+    ((1_023,), 4, 128, 32),      # ... one short of the training shape
+    ((1_024,), 8, 128, 64),      # damped_oscillator and bridge widths
+    ((3_000,), 4, 130, 32),      # H % 4 != 0: the hidden kernel's scalar tail
+    ((65_536,), 4, 256, 32),     # 65,536 x (4 -> 256), the TPU "auto" band
+    ((40_000,), 7, 100, 33),     # odd widths on the persistent staged path
+    ((40_000,), 12, 130, 80),    # d_in bucket 16, three column tiles, staged
+    ((300,), 16, 64, 8),         # the widest d_in bucket
+    ((4_096,), 4, 512, 32),      # hidden widths of the scaling study:
+    ((32_768,), 4, 512, 32),     # ... staged path at H = 512,
+    ((4_096,), 4, 1_024, 32),    # ... H = 1,024, staged weights over one
+    ((4_096,), 8, 1_024, 64),    # ... block's shared memory: split path,
+    ((32_768,), 4, 1_024, 32),   # ... at every row count
+    ((1_000,), 20, 128, 32),     # d_in over 16: runtime-length loops
+    ((40_000,), 24, 100, 40),    # ... at a staged-path row count
+    ((2_000,), 4, 1_100, 8),     # hidden kernel over 4 x 256 units: two passes
 ]
 
 
@@ -81,6 +111,14 @@ def test_hidden_kernel_matches_plain(device, lead, d_in, d_hidden, d_out):
     ((1_024,), 4, 128, 32),      # training
     ((16, 125), 4, 128, 32),     # leading dims
     ((777,), 7, 100, 33),        # odd widths
+    ((1_024,), 8, 128, 64),      # damped_oscillator and bridge widths
+    # scaling-study widths, at 1,024 rows: dW1 sums g * h over the rows,
+    # and h is recomputed in another f32 order than plain's, so at 4,096
+    # rows a sum that cancels to near zero misses atol 1e-5 by that alone
+    ((1_024,), 4, 1_024, 32),
+    ((1_024,), 8, 1_024, 64),
+    ((1_024,), 4, 512, 32),
+    ((1_000,), 20, 128, 32),     # d_in over 16
 ])
 def test_gradient_matches_plain_autograd(device, lead, d_in, d_hidden, d_out):
     """Under autograd fused_mlp goes through FusedMLPFunction: one forward
@@ -108,9 +146,39 @@ def test_bad_inputs_raise(device):
         fused_mlp(x, w0.t().contiguous().t(), b0, w1, b1)
     with pytest.raises(ValueError, match="shapes"):
         fused_mlp(x, w0, b0, w1[:, :64].contiguous(), b1)
+    # d_out over 65,535 column tiles of 32: more than the grid holds
+    tall = _inputs(device, (1,), 4, 1, 65_535 * 32 + 1)
     with pytest.raises(RuntimeError, match="launch failed"):
-        big = _inputs(device, (64,), 4, 4096, 32)
-        fused_mlp(*big)
+        fused_mlp(*tall)
+    # The staged path cannot hold H = 4,096's weights: forcing it raises.
+    big = _inputs(device, (64,), 4, 4_096, 32)
     with pytest.raises(RuntimeError, match="launch failed"):
-        huge = _inputs(device, (64,), 64, 4096, 32)
-        fused_mlp_hidden(*huge[:3])
+        fused_mlp_on_path(*big, staged=True)
+
+
+@pytest.mark.parametrize("lead, d_in, d_hidden, d_out", [
+    ((64,), 4, 4_096, 32),       # staged weights far over shared memory
+    ((64,), 64, 4_096, 32),      # and d_in 64
+])
+def test_wide_layers_run(device, lead, d_in, d_hidden, d_out):
+    """Widths whose weights no block can stage run all the same: the
+    forward on its split path, the hidden kernel in several passes."""
+    x, w0, b0, w1, b1 = _inputs(device, lead, d_in, d_hidden, d_out)
+    w0 = w0 * (4 / d_in) ** 0.5   # pre-activations spread as at d_in 4
+    torch.testing.assert_close(fused_mlp(x, w0, b0, w1, b1),
+                               fused_mlp_reference(x, w0, b0, w1, b1),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(fused_mlp_hidden(x, w0, b0),
+                               fused_mlp_hidden_reference(x, w0, b0),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1_024, 8_192, 16_384, 32_768])
+@pytest.mark.parametrize("staged", [False, True])
+def test_both_paths_match_plain(device, rows, staged):
+    """Either forward path, forced, at row counts on both sides of the
+    launcher's switch between them."""
+    args = _inputs(device, (rows,), 4, 128, 32)
+    torch.testing.assert_close(fused_mlp_on_path(*args, staged=staged),
+                               fused_mlp_reference(*args),
+                               rtol=1e-5, atol=1e-5)

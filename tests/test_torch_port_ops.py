@@ -28,6 +28,7 @@ from dpivae_tpu_torch.ops.fused_mlp import (
     fused_mlp,
     fused_mlp_hidden,
     fused_mlp_hidden_reference,
+    fused_mlp_on_path,
     fused_mlp_reference,
 )
 from dpivae_tpu_torch.ops.gradrev import grad_reverse, maybe_grad_reverse
@@ -133,6 +134,70 @@ def test_fused_mlp_rejects_other_devices():
         fused_mlp(*args)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fused_mlp_hidden(*args[:3])
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_fused_mlp_on_path_takes_only_cuda_tensors(staged):
+    """Forcing a kernel path means nothing for the plain version: a CPU
+    tensor raises instead of running it, and nothing is counted."""
+    args = [_t(a) for a in _mlp_inputs((4,))]
+    before = fused_mlp.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_mlp_on_path(*args, staged=staged)
+    assert fused_mlp.launches == before
+
+
+def _tf32(t):
+    """``cvt.rna.tf32.f32`` in plain torch: the f32 mantissa rounded to
+    TF32's 10 bits, to nearest with ties away from zero (adding half of the
+    13 dropped bits' unit to the magnitude, then clearing them)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(t):
+    """What a tensor core reads of an f32 register given as TF32: the low
+    13 mantissa bits dropped."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def test_tf32_emulation_rounds_to_nearest_ties_away():
+    one = torch.tensor([1.0], dtype=torch.float32)
+    ulp = 2.0 ** -10
+    for v, want in [(1 + ulp / 2, 1 + ulp), (1 + ulp / 2 - 2.0 ** -20, 1.0),
+                    (-(1 + ulp / 2), -(1 + ulp)), (1 + 3 * ulp / 4, 1 + ulp)]:
+        assert float(_tf32(one * v)) == want
+    x = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    assert (_tf32(x).view(torch.int32) & 0x1FFF == 0).all()
+    assert ((_tf32(x) - x).abs() <= x.abs() * 2.0 ** -11).all()
+
+
+def test_3xtf32_split_meets_f32_tolerance_and_one_pass_does_not():
+    """The forward kernel's layer 2 emulated on the CPU: h and W1 split into
+    hi = tf32(v) (rounded) and lo = v - hi (read truncated to TF32 by the
+    tensor cores); for each 8-wide k step the hi*hi product is added to an
+    f32 total and the cross terms lo*hi + hi*lo to a second one (products
+    of two TF32 values are exact in f32). Against the float64 result at
+    2,048 x (4 -> 128 -> 32) with the CUDA tests' weight scales the split
+    holds rtol/atol 1e-5; one TF32 pass (hi*hi) does not, which is why the
+    kernel pays three."""
+    x, w0, b0, w1, b1 = (_t(a) for a in _mlp_inputs((2048,)))
+    h = torch.relu(x @ w0 + b0)   # layer 1 in f32, as in the kernel
+    want = h.double() @ w1.double() + b1.double()
+    h_hi, w_hi = _tf32(h), _tf32(w1)
+    h_lo, w_lo = _tf32_truncated(h - h_hi), _tf32_truncated(w1 - w_hi)
+    big = b1.expand(2048, 32).clone()
+    small = torch.zeros(2048, 32)
+    for k in range(0, 128, 8):
+        s = slice(k, k + 8)
+        small += h_lo[:, s] @ w_hi[s]
+        small += h_hi[:, s] @ w_lo[s]
+        big += h_hi[:, s] @ w_hi[s]
+    split, one_pass = big + small, big
+    assert torch.allclose(split.double(), want, rtol=RTOL, atol=ATOL)
+    assert float((split.double() - want).abs().max()) < 1e-5
+    assert not torch.allclose(one_pass.double(), want, rtol=RTOL, atol=ATOL)
+    assert float((one_pass.double() - want).abs().max()) > 1e-3
 
 
 def _tril(rng, lead, d):
