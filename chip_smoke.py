@@ -13,22 +13,26 @@ Phases; any failure exits non-zero before the result line:
 3. Kernels vs plain, on the same CUDA inputs, both timed by CUDA events:
    the fused-MLP forward kernel at the serving shape (512 requests x 512
    MC samples = 262,144 rows x (4 -> 128 -> 32)), the validation shape
-   (512 points x 64 MC), the training shape (64 x 16 MC), a ragged row
-   count, the row counts on either side of the forward's switch from its
-   split to its staged path, and hidden 256, 512 and 1,024, each with two
-   least-time bounds (layer 2 in f32 on the CUDA cores, and on the TF32
-   tensor cores in three passes) and, at the serving, validation and
+   (512 points x 64 MC), the training shape (64 x 16 MC), the same three
+   at the damped_oscillator and bridge widths (8 -> 128 -> 64), a ragged
+   row count, the row counts on either side of the forward's switch from
+   its split to its staged path, and hidden 256, 512 and 1,024, each with
+   two least-time bounds (layer 2 in f32 on the CUDA cores, and on the
+   TF32 tensor cores in three passes) and, at the serving, validation and
    training shapes, beside the two-call cuBLASLt pair
    torch._addmm_activation then torch.addmm as a yardstick (the port
-   never calls it); the hidden-recompute kernel at the training shape, a
-   ragged row count and 65,536 x (4 -> 256), also against the one library
-   call that computes it (torch._addmm_activation: GEMM with a bias + ReLU
-   epilogue) and beside a fill_ of the same output (the card's practical
-   write rate); and FusedMLPFunction's backward against autograd through
-   the plain forward at the training shape. Then both forward paths, each
-   forced, at 1,024, 8,192, 16,384 and 32,768 rows: the measurement
-   behind the launcher's switch between them. Last, the forward and plain
-   f32 each against float64 at H = 256 to 1,024 (printed, not checked).
+   never calls it); the hidden-recompute kernel at both training shapes
+   (4 -> 128 and 8 -> 128), a ragged row count and 65,536 x (4 -> 256),
+   also against the one library call that computes it
+   (torch._addmm_activation: GEMM with a bias + ReLU epilogue) and beside
+   a fill_ of the same output (the card's practical write rate); and
+   FusedMLPFunction's backward against autograd through the plain forward
+   at the training shape. Then both forward paths, each forced, at 1,024,
+   8,192, 16,384 and 32,768 rows: the measurement behind the launcher's
+   switch between them. Then the forward and plain f32 each against
+   float64 at H = 256 to 1,024 (printed, not checked). Last, the CNN
+   encoder (damped_oscillator's S-model widths) on the card with cuDNN's
+   TF32 flag at its default, on, against the same module on the CPU.
 4. Serving path: simple_beam / "dpivae" preset with use_pallas=True at
    full width, random weights from a seed; a Predictor answers requests
    of n_test = 512 points with n_mc_test = 512 MC samples. The forward
@@ -48,9 +52,17 @@ Phases; any failure exits non-zero before the result line:
    times; every active log row must be finite, the last ELBO_val below
    the first, and the first 10 train rows must agree with a
    use_pallas=False run from the same seeds and weights. Steps/s of both
-   models from warm runs in alternating turns, and torch.profiler's view
-   of one warm train step.
-7. Prints a ``{"kernels": [...]}`` line and, last, the device line.
+   models from one warm run each, in turns (cut from two each, for the
+   time limit), and torch.profiler's view of one warm train step.
+7. The damped_oscillator / bridge slice, at 8 -> 128 -> 64: bridge /
+   "DPIVAE-A" (the P model, a frozen-MLP partial physics, the physical
+   covariate delta_xs joined to z_x) through phase 4's serving checks and
+   a profile of one request, then phase 6's training checks with n_iter
+   cut to 1,000; damped_oscillator / "dpivae" (S model) through phase 4's
+   serving checks. Every path's launches are counted from zero just
+   before it and read just after.
+8. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+   and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
 1e-5, as in tests/test_pallas_mlp.py. The plain versions are full f32;
@@ -80,6 +92,7 @@ RTOL = ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_TOL = 1e-4
 N_ITER = 2_000   # cut from the preset's 20,000 for the time limit
+N_ITER_BRIDGE = 1_000   # cut further for the time limit
 N_ROWS_COMPARED = 10
 N_REQUESTS = 3
 N_TIMED_REQUESTS = 20
@@ -95,6 +108,10 @@ SHAPES = {
     "serving": (262_144, 4, 128, 32),
     "validation": (32_768, 4, 128, 32),
     "training": (1_024, 4, 128, 32),
+    # the same three of the damped_oscillator and bridge paths
+    "serving8": (262_144, 8, 128, 64),
+    "validation8": (32_768, 8, 128, 64),
+    "training8": (1_024, 8, 128, 64),
     "ragged": (1_000, 4, 128, 32),
     # the last row count of the forward's split path, and the first of
     # its staged path
@@ -116,11 +133,13 @@ PATH_ROWS = (1_024, 8_192, 16_384, 32_768)
 F64_SHAPES = ((65_536, 4, 256, 32), (32_768, 4, 512, 32),
               (32_768, 4, 1_024, 32), (4_096, 8, 1_024, 64))
 # Forward shapes timed beside the cuBLASLt pair.
-PAIR_SHAPES = ("serving", "validation", "training")
-# (rows, d_in, d_hidden) of the hidden-recompute kernel; "training" is the
-# training path's shape.
+PAIR_SHAPES = ("serving", "validation", "training", "serving8",
+               "validation8", "training8")
+# (rows, d_in, d_hidden) of the hidden-recompute kernel; "training" and
+# "training8" are the training paths' shapes.
 HIDDEN_SHAPES = {
     "training": (1_024, 4, 128),
+    "training8": (1_024, 8, 128),
     "ragged": (1_000, 4, 128),
     "hidden256": (65_536, 4, 256),
 }
@@ -397,22 +416,29 @@ def _paths_vs_plain(ops, failures):
         print(f"forward paths {rows}x(4->128->32): {', '.join(line)}")
 
 
-def _main_path(ops, failures):
+def _serving(ops, failures, case_name, preset):
+    """A serving path: the case's preset with use_pallas=True at full
+    width, random weights from the seed; a Predictor answers N_REQUESTS
+    requests of n_test points x n_mc_test MC samples, counted, checked
+    against a use_pallas=False model of the same weights, and timed in
+    alternating turns. Returns (forward launches, kernel and plain model
+    per-request medians in ms, the predictor, one request)."""
     from dpivae_tpu_torch import TrainConfig
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor
     from dpivae_tpu_torch.train import init_params, setup_model
     from dpivae_tpu_torch.utils.data import sample_response
 
-    case = get_case("simple_beam")
-    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+    what = f"{case_name} / {preset!r}"
+    case = get_case(case_name)
+    cfg = TrainConfig().with_preset(case.presets[preset]).replace(
         use_pallas=True, use_seed=True, seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     data_train = sample_response(case, gen, cfg.n_train,
                                  sample_dist=case.gt_dist(), device="cuda")
     model = setup_model(cfg, case, data_train, device="cuda")
     if not model.use_pallas:
-        failures.append("use_pallas=True did not select the kernel")
+        failures.append(f"{what}: use_pallas=True did not select the kernel")
     params = init_params(cfg, model, device="cuda")
     outputs = tuple(SAMPLE_SLOTS)
     predictor = Predictor(model, params, cfg, outputs=outputs, device="cuda")
@@ -430,13 +456,14 @@ def _main_path(ops, failures):
     launches = ops.fused_mlp.launches
     hidden_launches = ops.fused_mlp_hidden.launches
 
-    print(f"serving path: {N_REQUESTS} requests of {cfg.n_test} points x "
-          f"{cfg.n_mc_test} MC samples; launches fused_mlp_fwd {launches}, "
-          f"fused_mlp_hidden {hidden_launches}")
+    print(f"serving path {what} ({model.model_type} model, idx_c_phys "
+          f"{model.idx_c_phys}): {N_REQUESTS} requests of {cfg.n_test} "
+          f"points x {cfg.n_mc_test} MC samples; launches fused_mlp_fwd "
+          f"{launches}, fused_mlp_hidden {hidden_launches}")
     if (launches, hidden_launches) != (N_REQUESTS, 0):
-        failures.append(f"expected {N_REQUESTS} forward and no hidden kernel "
-                        f"launches on the serving path, counted {launches} "
-                        f"and {hidden_launches}")
+        failures.append(f"{what}: expected {N_REQUESTS} forward and no "
+                        f"hidden kernel launches on the serving path, "
+                        f"counted {launches} and {hidden_launches}")
     widths = dict(x_sample=case.nd_x, xh_p=case.nd_x, xh_d=case.nd_x,
                   c_sample=case.nd_c, y=case.nd_y, zx=case.nz_x,
                   zc=cfg.nz_c, zy=cfg.nz_y)
@@ -448,19 +475,20 @@ def _main_path(ops, failures):
         for name in outputs:
             got = torch.from_numpy(answer[name])
             if tuple(got.shape) != (cfg.n_test, widths[name]):
-                failures.append(f"{name} has shape {tuple(got.shape)}")
+                failures.append(f"{what}: {name} has shape "
+                                f"{tuple(got.shape)}")
             if not torch.isfinite(got).all():
-                failures.append(f"{name} is not finite")
+                failures.append(f"{what}: {name} is not finite")
             ref = torch.from_numpy(want[name])
             worst = max(worst, float((got - ref).abs().max()))
             if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
-                failures.append(f"{name} of request {i} disagrees with the "
-                                f"use_pallas=False model")
+                failures.append(f"{what}: {name} of request {i} disagrees "
+                                f"with the use_pallas=False model")
         zx = torch.from_numpy(answer["zx"])
         if not ((zx >= lb) & (zx <= ub)).all():
-            failures.append("zx left the prior bounds")
-    print(f"serving path vs use_pallas=False model: max_abs_err {worst:.3e} "
-          f"(rtol {RTOL} atol {ATOL})")
+            failures.append(f"{what}: zx left the prior bounds")
+    print(f"serving path {what} vs use_pallas=False model: max_abs_err "
+          f"{worst:.3e} (rtol {RTOL} atol {ATOL})")
 
     # Per-request time, kernel and plain models in alternating turns.
     x, c = requests[0]
@@ -475,8 +503,9 @@ def _main_path(ops, failures):
             times[p].append(1e3 * (time.perf_counter() - t0))
     for name, p in (("kernel", predictor), ("plain", plain)):
         q1, q2, q3 = statistics.quantiles(times[p], n=4)
-        print(f"per request, {name} model: median {q2:.3f} ms, quartiles "
-              f"{q1:.3f}-{q3:.3f} ms over {N_TIMED_REQUESTS} requests")
+        print(f"per request {what}, {name} model: median {q2:.3f} ms, "
+              f"quartiles {q1:.3f}-{q3:.3f} ms over {N_TIMED_REQUESTS} "
+              f"requests")
     return (launches, statistics.median(times[predictor]),
             statistics.median(times[plain]), predictor, requests[0])
 
@@ -520,12 +549,9 @@ def _per_launch(events, kernel, what):
               f"launch (x{mine[0].count})")
 
 
-def _profile(predictor, request, fused_mlp, fused_mlp_hidden, request_ms):
-    """Device-side view from torch.profiler: one warm request's kernels and
-    device busy share, the fused-MLP kernel's own device time per launch at
-    the serving, training and 65,536 x (4 -> 256 -> 32) shapes, and the
-    hidden kernel's at 65,536 x (4 -> 256). Runs after the counted serving
-    path."""
+def _profile_request(what, predictor, request, request_ms):
+    """torch.profiler's device view of one warm request: its kernels and
+    the device's busy share. Runs after the counted serving path."""
     from torch.profiler import ProfilerActivity, profile
 
     x, c = request
@@ -535,7 +561,14 @@ def _profile(predictor, request, fused_mlp, fused_mlp_hidden, request_ms):
         t0 = time.perf_counter()
         predictor(x, c, seed=0)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    _print_profile("one request", _device_events(prof), wall_ms, request_ms)
+    _print_profile(what, _device_events(prof), wall_ms, request_ms)
+
+
+def _profile_kernels(fused_mlp, fused_mlp_hidden):
+    """The fused-MLP kernel's own device time per launch by torch.profiler
+    at the serving, training and 65,536 x (4 -> 256 -> 32) shapes, and the
+    hidden kernel's at 65,536 x (4 -> 256)."""
+    from torch.profiler import ProfilerActivity, profile
 
     for name in ("serving", "training", "hidden256"):
         rows, d_in, d_hidden, d_out = SHAPES[name]
@@ -558,9 +591,12 @@ def _profile(predictor, request, fused_mlp, fused_mlp_hidden, request_ms):
             _per_launch(_device_events(prof), kernel, what)
 
 
-def _training(ops, failures):
-    """The training path, counted, checked against a use_pallas=False run
-    of the same seeds and weights, and timed in alternating turns."""
+def _training(ops, failures, case_name, preset, n_iter):
+    """A training path, ``n_iter`` steps of the case's preset at bench.py's
+    workload: counted, checked against a use_pallas=False run of the same
+    seeds and weights, and timed in turns, one warm run of each model.
+    Returns ((forward, hidden) launches, steps/s by model, the run's
+    setup)."""
     from dpivae_tpu_torch import TrainConfig
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.train import (
@@ -571,14 +607,16 @@ def _training(ops, failures):
     )
     from dpivae_tpu_torch.utils.data import sample_response
 
-    case = get_case("simple_beam")
-    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+    what = f"{case_name} / {preset!r}"
+    case = get_case(case_name)
+    cfg = TrainConfig().with_preset(case.presets[preset]).replace(
         use_pallas=True, use_seed=True, seed=SEED, patience=10**9,
-        n_iter=N_ITER)
+        n_iter=n_iter)
     workload = (cfg.n_train, cfg.n_batch, cfg.n_mc_train, cfg.n_val,
                 cfg.n_mc_val, cfg.val_freq)
     if workload != (1_024, 64, 16, 512, 64, 10):
-        failures.append(f"training workload {workload} is not bench.py's")
+        failures.append(f"{what}: training workload {workload} is not "
+                        f"bench.py's")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     data_train = sample_response(case, gen, cfg.n_train,
                                  sample_dist=case.gt_dist(), device="cuda")
@@ -601,48 +639,91 @@ def _training(ops, failures):
     ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
     logs, cold_s = run("kernel")
     launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
-    want = (N_ITER + N_ITER // cfg.val_freq, N_ITER)
-    print(f"training path: {N_ITER} steps ({cfg.n_batch} x {cfg.n_mc_train} "
-          f"MC, validation of {cfg.n_val} x {cfg.n_mc_val} MC every "
-          f"{cfg.val_freq}) in {cold_s:.2f} s (first run); launches "
-          f"fused_mlp_fwd {launches[0]}, fused_mlp_hidden {launches[1]} "
-          f"(expected {want[0]}, {want[1]})")
+    want = (n_iter + n_iter // cfg.val_freq, n_iter)
+    print(f"training path {what} ({model.model_type} model): {n_iter} steps "
+          f"({cfg.n_batch} x {cfg.n_mc_train} MC, validation of {cfg.n_val} "
+          f"x {cfg.n_mc_val} MC every {cfg.val_freq}) in {cold_s:.2f} s "
+          f"(first run); launches fused_mlp_fwd {launches[0]}, "
+          f"fused_mlp_hidden {launches[1]} (expected {want[0]}, {want[1]})")
     if launches != want:
-        failures.append(f"training launches {launches}, expected {want}")
+        failures.append(f"{what}: training launches {launches}, expected "
+                        f"{want}")
 
     train = logs.train[logs.train_active]
     val = logs.val[logs.val_active]
-    if logs.stop_iter != N_ITER:
-        failures.append(f"training stopped at {logs.stop_iter}")
+    if logs.stop_iter != n_iter:
+        failures.append(f"{what}: training stopped at {logs.stop_iter}")
     if not (torch.isfinite(train).all() and torch.isfinite(val).all()):
-        failures.append("a training log row is not finite")
+        failures.append(f"{what}: a training log row is not finite")
     _, elbo_val = logs.scalars("ELBO_val")
     _, elbo = logs.scalars("ELBO")
-    print(f"training path: ELBO_val {elbo_val[0]:.4f} -> {elbo_val[-1]:.4f}, "
-          f"ELBO {elbo[0]:.4f} -> {elbo[-1]:.4f}, sigma_x "
+    print(f"training path {what}: ELBO_val {elbo_val[0]:.4f} -> "
+          f"{elbo_val[-1]:.4f}, ELBO {elbo[0]:.4f} -> {elbo[-1]:.4f}, "
+          f"sigma_x "
           f"{float(logs.train[-1, TRAIN_COLUMNS.index('sigma_x')]):.4f}")
     if not elbo_val[-1] < elbo_val[0]:
-        failures.append("ELBO_val did not decrease")
+        failures.append(f"{what}: ELBO_val did not decrease")
 
     plain_logs, _ = run("plain")
     got = logs.train[:N_ROWS_COMPARED]
     ref = plain_logs.train[:N_ROWS_COMPARED]
     worst = float((got - ref).abs().max())
-    print(f"training path vs use_pallas=False run: first {N_ROWS_COMPARED} "
-          f"rows max_abs_err {worst:.3e} (rtol {TRAIN_TOL} atol {TRAIN_TOL})")
+    print(f"training path {what} vs use_pallas=False run: first "
+          f"{N_ROWS_COMPARED} rows max_abs_err {worst:.3e} (rtol "
+          f"{TRAIN_TOL} atol {TRAIN_TOL})")
     if not torch.allclose(got, ref, rtol=TRAIN_TOL, atol=TRAIN_TOL):
-        failures.append("the first train rows disagree with the "
-                        "use_pallas=False run")
+        failures.append(f"{what}: the first train rows disagree with the "
+                        f"use_pallas=False run")
 
-    times = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        times[name].append(run(name)[1])
-    steps_s = {name: N_ITER / statistics.median(t) for name, t in times.items()}
+    times = {name: run(name)[1] for name in ("kernel", "plain")}
+    steps_s = {name: n_iter / t for name, t in times.items()}
     for name, t in times.items():
-        print(f"training steps/s, {name} model: {steps_s[name]:.1f} "
-              f"(median of warm runs of {N_ITER} steps: "
-              f"{', '.join(f'{x:.3f}' for x in t)} s)")
+        print(f"training steps/s {what}, {name} model: {steps_s[name]:.1f} "
+              f"(warm run of {n_iter} steps: {t:.3f} s)")
     return launches, steps_s, (cfg, case, model, params, data_train, data_val)
+
+
+def _cnn_encoder_on_card(failures):
+    """The Conv1d encoder at damped_oscillator's S-model widths (9 latents
+    over nd_x 64), on the card with cuDNN's TF32 flag at its default (on),
+    against the same module on the CPU; beside it, how far a cuDNN
+    convolution of each conv layer's input under that flag lands from the
+    encoder's own (printed, not checked)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from dpivae_tpu_torch.models.encoders import CNNEncoder
+
+    cpu = CNNEncoder(9, 64, torch.Generator().manual_seed(SEED),
+                     torch.device("cpu"))
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn(512, 64, generator=torch.Generator().manual_seed(SEED))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got = [t.cpu() for t in card(x.cuda())]
+            want = cpu(x)
+            h, cudnn_err = x.cuda()[:, :, None], []
+            for conv in card.trunk.conv:
+                mine = conv(h)
+                cudnn = F.conv1d(h.permute(0, 2, 1), conv.weight, conv.bias,
+                                 padding=1).permute(0, 2, 1)
+                cudnn_err.append(float((cudnn - mine).abs().max()))
+                h = torch.relu(mine)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ok = all(torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+             for g, w in zip(got, want))
+    print(f"CNN encoder 512 x 64 -> 9 latents, cuDNN allow_tf32 on: (loc, "
+          f"tril) on the card vs the CPU max_abs_err {worst:.3e} (rtol "
+          f"{RTOL} atol {ATOL}) {'ok' if ok else 'MISMATCH'}; conv layers "
+          f"1 and 2 on the card, cuDNN F.conv1d vs the encoder's own "
+          f"max_abs_err {cudnn_err[0]:.3e}, {cudnn_err[1]:.3e}")
+    if not ok:
+        failures.append("the CNN encoder on the card disagrees with the CPU")
 
 
 def _profile_train_step(setup):
@@ -721,18 +802,51 @@ def main() -> int:
     backward = _backward_vs_plain(ops, failures)
     _paths_vs_plain(ops, failures)
     _against_f64(ops)
-    serve_launches, req_ms, req_plain_ms, predictor, request = _main_path(ops, failures)
+    _cnn_encoder_on_card(failures)
+
+    # The main path of the first slices: simple_beam / "dpivae" (S model,
+    # 4 -> 128 -> 32).
+    serve_launches, req_ms, req_plain_ms, predictor, request = _serving(
+        ops, failures, "simple_beam", "dpivae")
     print(f"per request ({card}): kernel model {req_ms:.3f} ms, "
           f"plain model {req_plain_ms:.3f} ms "
           f"(warm median of {N_TIMED_REQUESTS})")
-    _profile(predictor, request, ops.fused_mlp, ops.fused_mlp_hidden, req_ms)
-    (fwd_launches, hidden_launches), steps_s, setup = _training(ops, failures)
+    _profile_request("one request", predictor, request, req_ms)
+    _profile_kernels(ops.fused_mlp, ops.fused_mlp_hidden)
+    (fwd_launches, hidden_launches), steps_s, setup = _training(
+        ops, failures, "simple_beam", "dpivae", N_ITER)
     print(f"training steps/s ({card}): kernel model {steps_s['kernel']:.1f}, "
           f"plain model {steps_s['plain']:.1f} (n_iter {N_ITER})")
     _profile_train_step(setup)
-    print(f"launches on the main paths: fused_mlp_fwd serving "
-          f"{serve_launches} + training {fwd_launches}; fused_mlp_hidden "
-          f"serving 0 + training {hidden_launches}")
+
+    # This slice's paths (8 -> 128 -> 64): bridge / "DPIVAE-A" (P model,
+    # surrogate partial physics, a physical covariate) serving and
+    # training, and damped_oscillator / "dpivae" (S model) serving.
+    b_launches, b_req_ms, b_plain_ms, b_predictor, b_request = _serving(
+        ops, failures, "bridge", "DPIVAE-A")
+    print(f"per request bridge / 'DPIVAE-A' ({card}): kernel model "
+          f"{b_req_ms:.3f} ms, plain model {b_plain_ms:.3f} ms")
+    _profile_request("one bridge / 'DPIVAE-A' request", b_predictor,
+                     b_request, b_req_ms)
+    (b_fwd, b_hidden), b_steps_s, _ = _training(
+        ops, failures, "bridge", "DPIVAE-A", N_ITER_BRIDGE)
+    print(f"training steps/s bridge / 'DPIVAE-A' ({card}): kernel model "
+          f"{b_steps_s['kernel']:.1f}, plain model {b_steps_s['plain']:.1f} "
+          f"(n_iter {N_ITER_BRIDGE})")
+    o_launches, o_req_ms, o_plain_ms, _, _ = _serving(
+        ops, failures, "damped_oscillator", "dpivae")
+    print(f"per request damped_oscillator / 'dpivae' ({card}): kernel "
+          f"model {o_req_ms:.3f} ms, plain model {o_plain_ms:.3f} ms")
+
+    fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
+                 + o_launches)
+    hidden_total = hidden_launches + b_hidden
+    print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
+          f"{serve_launches} + training {fwd_launches}, bridge serving "
+          f"{b_launches} + training {b_fwd}, damped_oscillator serving "
+          f"{o_launches} = {fwd_total}; fused_mlp_hidden simple_beam "
+          f"training {hidden_launches} + bridge training {b_hidden} = "
+          f"{hidden_total}")
 
     if failures:
         for f in failures:
@@ -745,7 +859,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "dpivae_tpu/ops/pallas_mlp.py:38",
-        "launches": serve_launches + fwd_launches,
+        "launches": fwd_total,
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "ms": serving["ms"],
         "plain_ms": serving["plain_ms"],
@@ -757,7 +871,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "dpivae_tpu/ops/pallas_mlp.py:46",
-        "launches": hidden_launches,
+        "launches": hidden_total,
         "max_abs_err": max([r["max_abs_err"] for r in hidden.values()]
                            + [backward["max_abs_err"]]),
         "ms": train_hidden["ms"],

@@ -6,9 +6,10 @@ against; module names mirror it so each counterpart is easy to find:
 - ``dpivae_tpu_torch.config``   — ``TrainConfig`` (dpivae_tpu/config.py).
 - ``dpivae_tpu_torch.utils``    — distributions, priors, transforms, data
   generation, annealing schedules, early stopping (dpivae_tpu/utils/).
-- ``dpivae_tpu_torch.physics``  — the analytic beam (dpivae_tpu/physics/).
-- ``dpivae_tpu_torch.cases``    — the ``simple_beam`` case
-  (dpivae_tpu/cases/).
+- ``dpivae_tpu_torch.physics``  — the analytic beam and oscillators
+  (dpivae_tpu/physics/).
+- ``dpivae_tpu_torch.cases``    — the ``simple_beam``,
+  ``damped_oscillator`` and ``bridge`` cases (dpivae_tpu/cases/).
 - ``dpivae_tpu_torch.ops``      — gradient reversal, MVN sampling and the
   hand-written CUDA fused-MLP kernels with their autograd function
   (dpivae_tpu/ops/).

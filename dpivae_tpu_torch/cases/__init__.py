@@ -1,16 +1,20 @@
 """Declarative case studies (counterpart of dpivae_tpu/cases/__init__.py).
 
-A case is a frozen dataclass built on demand by ``get_case(name)``. Only
-``simple_beam`` is registered in this package so far; its frozen
-surrogate is a tanh MLP over numpy weights read from the JAX package's
-bundled archive by file path (reading a data file imports nothing).
+A case is a frozen dataclass built on demand by ``get_case(name)``; all
+three of the JAX package's cases are registered (``list_cases``). Frozen
+surrogates are tanh MLPs over numpy weights read from the JAX package's
+bundled archives by file path (reading a data file imports nothing).
+
+``Case.fingerprint`` (dpivae_tpu/cases/__init__.py:180-275) is left out:
+it only keys the JAX package's executable cache, which has no counterpart
+here (ROADMAP.md, queue 1, item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,28 +53,50 @@ class PriorSpec:
     args: Mapping[str, float]
 
 
+def device_constants(copies: Dict, arrays: Sequence[np.ndarray],
+                     like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``arrays`` as tensors of ``like``'s device and dtype, copied there on
+    first use and kept in ``copies``: a copy from host memory on every call
+    would make each call wait for the device. The copies are made outside
+    inference mode, so that a first call under ``torch.inference_mode``
+    leaves tensors that autograd can still use."""
+    key = (like.device, like.dtype)
+    if key not in copies:
+        with torch.inference_mode(False):
+            copies[key] = tuple(
+                torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                for a in arrays)
+    return copies[key]
+
+
 @dataclasses.dataclass(frozen=True)
 class Surrogate:
     """Frozen tanh MLP with an input StandardScaler, as a callable
     (counterpart of dpivae_tpu/cases/__init__.py:57-91).
 
-    Weights are numpy constants in the JAX layout ``w: (in, out)``; they
-    are copied to the input's device and dtype at call time.
+    Weights are numpy constants in the JAX layout ``w: (in, out)``; compute
+    follows the input's device and dtype (``device_constants``).
     """
 
     params: Any  # {"layers": ({"w", "b"}, ...)}
     scaler_mean: np.ndarray
     scaler_scale: np.ndarray
+    _copies: Dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
-        def t(a):
-            return torch.as_tensor(a, dtype=z.dtype, device=z.device)
-
-        h = (z - t(self.scaler_mean)) / t(self.scaler_scale)
         layers = self.params["layers"]
-        for layer in layers[:-1]:
-            h = torch.tanh(h @ t(layer["w"]) + t(layer["b"]))
-        return h @ t(layers[-1]["w"]) + t(layers[-1]["b"])
+        mean, scale, *wb = device_constants(
+            self._copies,
+            (self.scaler_mean, self.scaler_scale,
+             *(a for layer in layers for a in (layer["w"], layer["b"]))),
+            z)
+        pairs = list(zip(wb[::2], wb[1::2]))
+        h = (z - mean) / scale
+        for w, b in pairs[:-1]:
+            h = torch.tanh(h @ w + b)
+        w, b = pairs[-1]
+        return h @ w + b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +118,11 @@ class Case:
     x_unit: str = ""
     y_unit: str = ""
     ylim: Tuple[float, float] = (-1.0, 1.0)
+    # Simulator datasets, as in the JAX package's archives
     x_full: Optional[np.ndarray] = None
     y_full: Optional[np.ndarray] = None
+    x_part: Optional[np.ndarray] = None
+    y_part: Optional[np.ndarray] = None
 
     @property
     def shapes(self) -> Tuple[int, int, int, int, int]:
@@ -160,11 +189,23 @@ def register_case(name: str):
     return wrap
 
 
+def _register_all() -> None:
+    # Imported lazily so that an artifact is read on first use
+    from dpivae_tpu_torch.cases import (  # noqa: F401
+        bridge,
+        damped_oscillator,
+        simple_beam,
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def get_case(name: str) -> Case:
-    # Imported lazily so the artifact is read on first use
-    from dpivae_tpu_torch.cases import simple_beam  # noqa: F401
-
+    _register_all()
     if name not in _REGISTRY:
         raise KeyError(f"Unknown case {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_cases() -> Sequence[str]:
+    _register_all()
+    return sorted(_REGISTRY)

@@ -114,7 +114,8 @@ class TrainConfig:
     n_plot: int = 2000
     n_interp: int = 5
 
-    # Unused CNN channel params kept for preset compatibility
+    # The CNN encoder's channels: input channels the signal is split
+    # into, conv channels, and the trunk's output width
     ch_in: int = 1
     ch_out: int = 16
     ch_latent: int = 64

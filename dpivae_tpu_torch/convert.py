@@ -2,9 +2,12 @@
 
 The JAX package keeps params as a pytree of nested dicts and tuples, with
 dense layers as ``{"w": (in, out), "b": (out,)}`` (dpivae_tpu/models/nn.py:
-25-36). This package keeps them in ``nn.Linear`` modules, weight (out, in).
-``params_from_jax`` maps one onto the other; it takes the pytree with
-numpy leaves (``jax.tree.map(np.asarray, params)``) and imports no jax.
+25-36) and 1-D convolutions as ``{"w": (kernel, ch_in, ch_out), "b"}``
+(dpivae_tpu/models/encoders.py:55-66). This package keeps them in
+``nn.Linear`` modules, weight (out, in), and ``Conv1dSame`` modules,
+weight (ch_out, ch_in, kernel) as ``nn.Conv1d``'s. ``params_from_jax``
+maps one onto the other; it takes the pytree with numpy leaves
+(``jax.tree.map(np.asarray, params)``) and imports no jax.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from dpivae_tpu_torch.utils import DeviceLike
 
 def state_dict_from_jax(tree) -> Dict[str, torch.Tensor]:
     """Flatten a JAX params pytree into this package's state-dict names:
-    dict keys and tuple indices join with "."; a dense layer's "w"/"b"
-    become "weight" (transposed to (out, in)) and "bias"."""
+    dict keys and tuple indices join with "."; a layer's "w"/"b" become
+    "weight" and "bias", a dense weight transposed to (out, in) and a
+    convolution's (kernel, ch_in, ch_out) to (ch_out, ch_in, kernel)."""
     flat: Dict[str, torch.Tensor] = {}
 
     def tensor(a):
@@ -31,10 +35,10 @@ def state_dict_from_jax(tree) -> Dict[str, torch.Tensor]:
         if isinstance(node, Mapping):
             if set(node) == {"w", "b"}:
                 w = np.asarray(node["w"])
-                if w.ndim != 2:
-                    raise NotImplementedError(
-                        f"{prefix}w has {w.ndim} dims; only dense layers "
-                        f"convert so far"
+                if w.ndim not in (2, 3):
+                    raise ValueError(
+                        f"{prefix}w has {w.ndim} dims; a dense weight has 2, "
+                        f"a 1-D convolution's 3"
                     )
                 flat[prefix + "weight"] = tensor(w.T)
                 flat[prefix + "bias"] = tensor(node["b"])

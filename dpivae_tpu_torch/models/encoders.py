@@ -1,9 +1,11 @@
 """Gaussian encoder heads and reparameterized sampling (counterpart of
-dpivae_tpu/models/encoders.py:20-43,127-206).
+dpivae_tpu/models/encoders.py:20-206).
 
-The numeric clamps (±50 loc, [-7, 3] log-sigma, ±20 tril) and the 1e-8
-diagonal jitter are load-bearing for training stability and equal the JAX
-package's. The Conv1d trunk (encoders.py:55-125) is not ported yet.
+A head is a trunk, the dense ReLU stack (``FactorizedNN``, ``FullCovNN``)
+or the Conv1d stack (``CNNEncoder``), then loc and log-sigma heads, and for
+a full covariance a strictly-lower-tril head. The numeric clamps (±50 loc,
+[-7, 3] log-sigma, ±20 tril) and the 1e-8 diagonal jitter are load-bearing
+for training stability and equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,60 +16,112 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dpivae_tpu_torch.models.nn import MLP, linear
+from dpivae_tpu_torch.models.nn import MLP, Conv1dSame, linear
 from dpivae_tpu_torch.ops.mvn import mvn_sample_with_log_prob
 
 JITTER = 1e-8
 
 
-def _trunk_apply(trunk: MLP, x: torch.Tensor) -> torch.Tensor:
-    # The reference trunk applies ReLU after *every* linear, the last too.
-    h = x
-    for layer in trunk.layers:
-        h = F.relu(layer(h))
-    return h
+class DenseTrunk(MLP):
+    """The reference trunk: ReLU after *every* linear, the last too."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for layer in self.layers:
+            h = F.relu(layer(h))
+        return h
 
 
-class FactorizedNN(nn.Module):
-    """Diagonal-covariance Gaussian head: ReLU trunk + loc and log-sigma
-    heads. ``forward(x) -> (loc, diag scale_tril)``."""
+class CNNTrunk(nn.Module):
+    """Conv/ReLU, Conv/ReLU, flatten, Linear/ReLU (counterpart of
+    dpivae_tpu/models/encoders.py:81-91): the nd_x signal is a sequence of
+    nd_x / ch_in positions of ch_in channels, flattened position-major
+    (length, ch_out) as in the JAX package, so ``proj`` carries over."""
 
-    def __init__(self, n_latent: int, n_input: int, layers: Sequence[int],
-                 generator: torch.Generator, device: torch.device):
+    def __init__(self, n_input: int, ch_in: int, ch_out: int, ch_latent: int,
+                 kernel: int, generator: torch.Generator,
+                 device: torch.device):
         super().__init__()
-        sizes = [n_input, *layers]
-        self.n_latent = n_latent
-        self.trunk = MLP(sizes, generator, device)
-        self.f_mean = linear(sizes[-1], n_latent, generator, device)
-        self.f_sigma = linear(sizes[-1], n_latent, generator, device)
+        if n_input % ch_in:
+            raise ValueError(f"nd_x={n_input} not divisible by ch_in={ch_in}")
+        self.ch_in = ch_in
+        self.conv = nn.ModuleList([
+            Conv1dSame(ch_in, ch_out, kernel, generator, device),
+            Conv1dSame(ch_out, ch_out, kernel, generator, device),
+        ])
+        self.proj = linear(n_input // ch_in * ch_out, ch_latent, generator,
+                           device)
 
-    def _heads(self, x: torch.Tensor):
-        h = _trunk_apply(self.trunk, x)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        h = x.reshape(-1, x.shape[-1] // self.ch_in, self.ch_in)
+        for conv in self.conv:
+            h = F.relu(conv(h))
+        h = F.relu(self.proj(h.reshape(h.shape[0], -1)))
+        return h.reshape(*lead, h.shape[-1])
+
+
+class GaussianHead(nn.Module):
+    """A trunk of output width ``width`` and the Gaussian heads.
+    ``forward(x) -> (loc, scale_tril)``, the tril diagonal with
+    ``full_cov=False``."""
+
+    def __init__(self, n_latent: int, trunk: nn.Module, width: int,
+                 full_cov: bool, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.n_latent = n_latent
+        self.trunk = trunk
+        self.f_mean = linear(width, n_latent, generator, device)
+        self.f_sigma = linear(width, n_latent, generator, device)
+        self.f_cov = (linear(width, n_latent * n_latent, generator, device)
+                      if full_cov else None)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self.trunk(x)
         loc = torch.clamp(self.f_mean(h), -50.0, 50.0)
         sigma = torch.exp(torch.clamp(self.f_sigma(h), -7.0, 3.0))
-        return h, loc, torch.diag_embed(sigma + JITTER)
-
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        _, loc, diag = self._heads(x)
-        return loc, diag
-
-
-class FullCovNN(FactorizedNN):
-    """Full-covariance Gaussian head: the factorized head plus a
-    strictly-lower-tril head. ``forward(x) -> (loc, scale_tril)``."""
-
-    def __init__(self, n_latent: int, n_input: int, layers: Sequence[int],
-                 generator: torch.Generator, device: torch.device):
-        super().__init__(n_latent, n_input, layers, generator, device)
-        self.f_cov = linear(self.f_mean.in_features, n_latent * n_latent,
-                            generator, device)
-
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        diag = torch.diag_embed(sigma + JITTER)
+        if self.f_cov is None:
+            return loc, diag
         n = self.n_latent
-        h, loc, diag = self._heads(x)
         L = torch.clamp(self.f_cov(h), -20.0, 20.0)
         L = torch.tril(L.reshape(*x.shape[:-1], n, n), diagonal=-1)
         return loc, L + diag
+
+
+class FactorizedNN(GaussianHead):
+    """Diagonal-covariance head on a dense trunk."""
+
+    def __init__(self, n_latent: int, n_input: int, layers: Sequence[int],
+                 generator: torch.Generator, device: torch.device):
+        sizes = [n_input, *layers]
+        super().__init__(n_latent, DenseTrunk(sizes, generator, device),
+                         sizes[-1], False, generator, device)
+
+
+class FullCovNN(GaussianHead):
+    """Full-covariance head on a dense trunk."""
+
+    def __init__(self, n_latent: int, n_input: int, layers: Sequence[int],
+                 generator: torch.Generator, device: torch.device):
+        sizes = [n_input, *layers]
+        super().__init__(n_latent, DenseTrunk(sizes, generator, device),
+                         sizes[-1], True, generator, device)
+
+
+class CNNEncoder(GaussianHead):
+    """Full-covariance head on the Conv1d trunk (counterpart of
+    dpivae_tpu/models/encoders.py:94-124): the heads and clamps of
+    ``FullCovNN``."""
+
+    def __init__(self, n_latent: int, n_input: int,
+                 generator: torch.Generator, device: torch.device,
+                 ch_in: int = 1, ch_out: int = 16, ch_latent: int = 64,
+                 kernel: int = 3):
+        trunk = CNNTrunk(n_input, ch_in, ch_out, ch_latent, kernel, generator,
+                         device)
+        super().__init__(n_latent, trunk, ch_latent, True, generator, device)
 
 
 def gaussian_encoder_sample(

@@ -5,17 +5,20 @@ of dpivae_tpu/models/vae.py:33-35,110-478).
 trainable state is a ``DPIVAEParams`` module with one submodule per
 optimizer group::
 
-    encoder, prior_net_c, prior_net_y, decoder_x, decoder_c, decoder_y,
+    encoder, [encoder_c, encoder_y],      # S: one; P: three
+    prior_net_c, prior_net_y, decoder_x, decoder_c, decoder_y,
     log_sigma_x
 
 Randomness is explicit: ``sample``/``forward``/``encode`` take a
 ``torch.Generator``, or a ``noise`` mapping of ready-made standard normals
 (the seam through which tests hand in the JAX package's exact draws).
 
-Ported so far: the S model's sampling path and its training loss
-(``loss``, with the MC-chunked form of ``mc_chunk``). Not yet: the P model,
-the CNN encoder, ``compute_dtype="bfloat16"`` and ``remat_decode``; each
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+Both models are ported, S (one joint encoder) and P (three per-block
+encoders over the same x), each with the dense or the Conv1d encoder
+trunk, for sampling and for the training loss (with the MC-chunked form
+of ``mc_chunk``). Not yet: ``compute_dtype="bfloat16"`` and
+``remat_decode``; each raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from dpivae_tpu_torch.models.decoders import (
     GradRevAdditiveDecoder,
 )
 from dpivae_tpu_torch.models.encoders import (
+    CNNEncoder,
     FactorizedNN,
     FullCovNN,
     gaussian_encoder_sample,
@@ -83,14 +87,20 @@ def _normal(noise: Noise, name: str, shape, generator, like: torch.Tensor):
 
 
 class DPIVAEParams(nn.Module):
-    """The trainable state of a DPIVAE, one submodule per optimizer group."""
+    """The trainable state of a DPIVAE, one submodule per optimizer group;
+    ``encoder_c`` and ``encoder_y`` exist in the P model only."""
 
     def __init__(self, encoder: nn.Module, prior_net_c: nn.Module,
                  prior_net_y: nn.Module, decoder_x: GradRevAdditiveDecoder,
                  decoder_c: GaussianDecoder, decoder_y: GaussianDecoder,
-                 log_sigma_x: torch.Tensor):
+                 log_sigma_x: torch.Tensor,
+                 encoder_c: Optional[nn.Module] = None,
+                 encoder_y: Optional[nn.Module] = None):
         super().__init__()
         self.encoder = encoder
+        if encoder_c is not None:
+            self.encoder_c = encoder_c
+            self.encoder_y = encoder_y
         self.prior_net_c = prior_net_c
         self.prior_net_y = prior_net_y
         self.decoder_x = decoder_x
@@ -115,11 +125,18 @@ class DPIVAE:
     nd_c: int
     nd_y: int
     idx_c_phys: Tuple[int, ...]
-    model_type: str = "S"
+    model_type: str = "S"  # "P" | "S"
     full_cov_prior: bool = False
     lambda_x: Optional[float] = None
+    encoder_layers: Tuple[int, ...] = (64,)  # P-mode per-block encoders
     encoder_layers_s: Tuple[int, ...] = (128,)  # S-mode joint encoder
+    # Encoder trunks: "NN" (dense) or "CNN" (Conv1d over the signal)
     encoder_x_arch: str = "NN"
+    encoder_c_arch: str = "NN"
+    encoder_y_arch: str = "NN"
+    ch_in: int = 1
+    ch_out: int = 16
+    ch_latent: int = 64
     prior_net_layers: Tuple[int, ...] = (64,)
     decoder_aux_layers: Tuple[int, ...] = (64,)
     decoder_x_hidden: int = DECODER_X_HIDDEN
@@ -135,14 +152,12 @@ class DPIVAE:
     mc_chunk: Optional[int] = None
 
     def __post_init__(self):
-        if self.model_type == "P":
-            raise _not_ported("the P model", "queue 1, item 7")
-        if self.model_type != "S":
+        if self.model_type not in ("P", "S"):
             raise ValueError(f"Invalid model_type {self.model_type}")
-        if self.encoder_x_arch == "CNN":
-            raise _not_ported("the CNN encoder", "queue 1, item 7")
-        if self.encoder_x_arch != "NN":
-            raise ValueError(f"Unknown encoder_x choice: {self.encoder_x_arch}")
+        for which in ("x", "c", "y"):
+            arch = getattr(self, f"encoder_{which}_arch")
+            if arch not in ("NN", "CNN"):
+                raise ValueError(f"Unknown encoder_{which} choice: {arch}")
         if self.compute_dtype is not None:
             raise _not_ported("compute_dtype='bfloat16'", "queue 1, item 7")
         if self.remat_decode:
@@ -157,10 +172,29 @@ class DPIVAE:
         means CUDA)."""
         device = resolve_device(device)
         prior_cls = FullCovNN if self.full_cov_prior else FactorizedNN
-        nz = self.nz_x + self.nz_c + self.nz_y
+
+        def encoder(arch, n_latent, layers):
+            if arch == "CNN":
+                return CNNEncoder(n_latent, self.nd_x, generator, device,
+                                  ch_in=self.ch_in, ch_out=self.ch_out,
+                                  ch_latent=self.ch_latent)
+            return FullCovNN(n_latent, self.nd_x, layers, generator, device)
+
+        if self.model_type == "S":
+            nz = self.nz_x + self.nz_c + self.nz_y
+            encoders = dict(encoder=encoder(self.encoder_x_arch, nz,
+                                            self.encoder_layers_s))
+        else:  # "P": three per-block encoders over the same x
+            encoders = dict(
+                encoder=encoder(self.encoder_x_arch, self.nz_x,
+                                self.encoder_layers),
+                encoder_c=encoder(self.encoder_c_arch, self.nz_c,
+                                  self.encoder_layers),
+                encoder_y=encoder(self.encoder_y_arch, self.nz_y,
+                                  self.encoder_layers),
+            )
         return DPIVAEParams(
-            encoder=FullCovNN(nz, self.nd_x, self.encoder_layers_s,
-                              generator, device),
+            **encoders,
             prior_net_c=prior_cls(self.nz_c, self.nd_c, self.prior_net_layers,
                                   generator, device),
             prior_net_y=prior_cls(self.nz_y, self.nd_y, self.prior_net_layers,
@@ -203,19 +237,36 @@ class DPIVAE:
     def encode(self, params: DPIVAEParams, x, n: int = 1, *,
                generator: Optional[torch.Generator] = None,
                eps: Optional[torch.Tensor] = None):
-        """Sample latents from q(z|x) for the S model: one joint encoder,
-        the squash on the z_x slice, split by dims. Returns (zx, zc, zy,
-        log q)."""
-        nz = self.nz_x + self.nz_c + self.nz_y
-        loc, tril = params.encoder(x)
-        z, dens_z = gaussian_encoder_sample(
-            loc, tril, n, generator=generator, eps=eps,
+        """Sample latents from q(z|x). Returns (zx, zc, zy, log q).
+
+        S: one joint encoder, the squash on the z_x slice, split by dims.
+        P: three encoders over the same x, the squash on z_x only, and the
+        three log-densities summed. ``eps`` is (n, batch, nz_x + nz_c +
+        nz_y) for both: for P its slices are the x, c and y encoders'
+        standard normals, in that order, as the JAX package splits its key.
+        """
+        nz_x, nz_c = self.nz_x, self.nz_c
+        if self.model_type == "S":
+            loc, tril = params.encoder(x)
+            z, dens_z = gaussian_encoder_sample(
+                loc, tril, n, generator=generator, eps=eps,
+                output_transform=self.output_transform_zx,
+            )
+            return (z[..., :nz_x], z[..., nz_x: nz_x + nz_c],
+                    z[..., nz_x + nz_c:], dens_z)
+        eps_x = eps_c = eps_y = None
+        if eps is not None:
+            eps_x, eps_c, eps_y = torch.split(
+                eps, [nz_x, nz_c, self.nz_y], dim=-1)
+        zx, dens_zx = gaussian_encoder_sample(
+            *params.encoder(x), n, generator=generator, eps=eps_x,
             output_transform=self.output_transform_zx,
         )
-        zx = z[..., : self.nz_x]
-        zc = z[..., self.nz_x: self.nz_x + self.nz_c]
-        zy = z[..., self.nz_x + self.nz_c: nz]
-        return zx, zc, zy, dens_z
+        zc, dens_zc = gaussian_encoder_sample(
+            *params.encoder_c(x), n, generator=generator, eps=eps_c)
+        zy, dens_zy = gaussian_encoder_sample(
+            *params.encoder_y(x), n, generator=generator, eps=eps_y)
+        return zx, zc, zy, dens_zx + dens_zc + dens_zy
 
     def decode(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha=None):
         """(xh_p, xh_d, c_hat, log_sigma_c, y_hat, log_sigma_y)."""

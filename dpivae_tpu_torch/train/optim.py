@@ -16,15 +16,21 @@ from dpivae_tpu_torch.config import TrainConfig
 
 
 def group_hparams(config: TrainConfig) -> Dict[str, Tuple[float, float]]:
-    """(lr, wd) per params group: the S-model encoder uses lr_e; prior nets
-    share lr_p; decoders lr_dx/lr_dc/lr_dy; the noise scalar lr_sigma."""
-    if config.model_type != "S":
-        raise ValueError(
-            f"model type {config.model_type!r}: only the S model is ported "
-            f"(ROADMAP.md, queue 1, item 7)"
-        )
+    """(lr, wd) per params group: the P model's encoders use lr_ex/lr_ec/
+    lr_ey, the S model's one encoder lr_e, all with wd_e; prior nets share
+    lr_p; decoders lr_dx/lr_dc/lr_dy; the noise scalar lr_sigma."""
+    if config.model_type == "P":
+        enc = {
+            "encoder": (config.lr_ex, config.wd_e),
+            "encoder_c": (config.lr_ec, config.wd_e),
+            "encoder_y": (config.lr_ey, config.wd_e),
+        }
+    elif config.model_type == "S":
+        enc = {"encoder": (config.lr_e, config.wd_e)}
+    else:
+        raise ValueError(f"Unknown model type {config.model_type}")
     return {
-        "encoder": (config.lr_e, config.wd_e),
+        **enc,
         "prior_net_c": (config.lr_p, config.wd_p),
         "prior_net_y": (config.lr_p, config.wd_p),
         "decoder_x": (config.lr_dx, config.wd_dx),

@@ -1,9 +1,11 @@
 """Model assembly (counterpart of dpivae_tpu/train/setup.py:116-252,299-305).
 
-``setup_model`` wires the S-model DPIVAE from a config, a case and the
-training data: it fits the input StandardScalers, builds the fixed z_x
-prior and the encoder output squash (Logistic -> ShiftScale into the prior
-bounds, on the z_x slice only), and resolves ``use_pallas``/``mc_chunk``.
+``setup_model`` wires the DPIVAE from a config, a case and the training
+data: it fits the input StandardScalers, builds the fixed z_x prior and
+the encoder output squash (Logistic -> ShiftScale into the prior bounds;
+for the S model on the z_x slice of the joint latent only), selects the P
+(three per-block encoders) or S (one joint encoder) model, and resolves
+``use_pallas``/``mc_chunk``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dpivae_tpu_torch.config import TrainConfig
 from dpivae_tpu_torch.models.vae import DPIVAE, DPIVAEParams
 from dpivae_tpu_torch.utils import DeviceLike, resolve_device
 from dpivae_tpu_torch.utils.transforms import (
+    Chain,
     Logistic,
     MaskedChain,
     ShiftScale,
@@ -65,19 +68,25 @@ def setup_model(config: TrainConfig, case: Case, data_train,
                       device=device)
     ub = torch.tensor([p.ub for p in case.prior_x], dtype=torch.float32,
                       device=device)
-    if config.model_type == "S" and (
-            tuple(case.z_idx_x) != tuple(range(case.nz_x))):
-        raise ValueError(
-            "S model expects x-type factors first in the factor table"
+    if config.model_type == "P":
+        output_transform_zx = Chain(Logistic(k=1.0), ShiftScale(lb, ub))
+    elif config.model_type == "S":
+        # The x-type factors occupy the leading indices by case convention
+        if tuple(case.z_idx_x) != tuple(range(case.nz_x)):
+            raise ValueError(
+                "S model expects x-type factors first in the factor table"
+            )
+        output_transform_zx = MaskedChain(
+            case.z_idx_x, Logistic(k=1.0), ShiftScale(lb, ub)
         )
-    output_transform_zx = MaskedChain(
-        case.z_idx_x, Logistic(k=1.0), ShiftScale(lb, ub)
-    )
+    else:
+        raise ValueError(f"Unknown model type {config.model_type}")
 
     widths = {}
     if config.hidden_width is not None:
         w = int(config.hidden_width)
         widths = dict(
+            encoder_layers=(w,),
             encoder_layers_s=(w,),
             prior_net_layers=(w,),
             decoder_aux_layers=(w,),
@@ -106,6 +115,11 @@ def setup_model(config: TrainConfig, case: Case, data_train,
         full_cov_prior=config.full_cov_prior,
         lambda_x=config.lambda_x,
         encoder_x_arch=config.encoder_x,
+        encoder_c_arch=config.encoder_c,
+        encoder_y_arch=config.encoder_y,
+        ch_in=config.ch_in,
+        ch_out=config.ch_out,
+        ch_latent=config.ch_latent,
         transform_x=transform_x,
         transform_c=transform_c,
         transform_y=transform_y,

@@ -1,6 +1,7 @@
 """The CUDA fused-MLP kernels against their plain PyTorch versions, on the
 card: the forward, the hidden-layer recompute, and the gradients of
-FusedMLPFunction against autograd through the plain forward.
+FusedMLPFunction against autograd through the plain forward; and the
+Conv1d encoder on the card against the same module in float64.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no jax, since the machine with the card has none;
@@ -17,9 +18,12 @@ chip_smoke.py (tests/test_torch_port_ops.py shows, on an f32 model of
 the arithmetic, that one TF32 pass misses 1e-5 and the split does not).
 """
 
+import copy
+
 import pytest
 import torch
 
+from dpivae_tpu_torch.models.encoders import CNNEncoder
 from dpivae_tpu_torch.ops.fused_mlp import (
     fused_mlp,
     fused_mlp_hidden,
@@ -66,7 +70,9 @@ SHAPES = [
     ((15,), 4, 128, 32),         # ... one short of a tile,
     ((17,), 4, 128, 32),         # ... one past it,
     ((1_023,), 4, 128, 32),      # ... one short of the training shape
-    ((1_024,), 8, 128, 64),      # damped_oscillator and bridge widths
+    ((1_024,), 8, 128, 64),      # damped_oscillator and bridge widths:
+    ((32_768,), 8, 128, 64),     # ... their validation shape,
+    ((262_144,), 8, 128, 64),    # ... and their serving shape
     ((3_000,), 4, 130, 32),      # H % 4 != 0: the hidden kernel's scalar tail
     ((65_536,), 4, 256, 32),     # 65,536 x (4 -> 256), the TPU "auto" band
     ((40_000,), 7, 100, 33),     # odd widths on the persistent staged path
@@ -182,3 +188,25 @@ def test_both_paths_match_plain(device, rows, staged):
     torch.testing.assert_close(fused_mlp_on_path(*args, staged=staged),
                                fused_mlp_reference(*args),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_cnn_encoder_matches_float64_with_cudnn_tf32_on(device):
+    """The Conv1d encoder at damped_oscillator's S-model widths (9 latents
+    over nd_x 64, ch_in 1) with cuDNN's TF32 flag at its default, on:
+    the encoder computes its convolutions as f32 matrix products, so the
+    flag does not reach it and it stays within 1e-5 of float64."""
+    module = CNNEncoder(9, 64, torch.Generator().manual_seed(0),
+                        torch.device("cpu")).to(device)
+    exact = copy.deepcopy(module).double()
+    x = torch.randn(512, 64, generator=torch.Generator().manual_seed(1)
+                    ).to(device)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got = module(x)
+            want = exact(x.double())
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.float(), rtol=1e-5, atol=1e-5)

@@ -32,7 +32,7 @@ def test_package_imports_no_jax_and_no_jax_package():
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "dpivae_tpu" or m.startswith("dpivae_tpu."))
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        sys.exit(1 if bad or len(names) < 31 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -48,6 +48,12 @@ def _entry_points():
                            device="cpu")
     model = setup_model(cfg, case, data, device="cpu")
     params = init_params(cfg, model, device="cpu")
+    bridge = get_case("bridge")
+    p_cfg = TrainConfig().with_preset(bridge.presets["DPIVAE-A"]).replace(
+        n_train=32, n_batch=16)
+    p_data = sample_response(bridge, gen, 32, sample_dist=bridge.gt_dist(),
+                             device="cpu")
+    p_model = setup_model(p_cfg, bridge, p_data, device="cpu")
     return {
         "sample_response": lambda: sample_response(
             case, gen, 4, sample_dist=case.gt_dist()),
@@ -56,12 +62,13 @@ def _entry_points():
         "init_params": lambda: init_params(cfg, model),
         "Predictor": lambda: Predictor(model, params, cfg),
         "train_model": lambda: train_model(cfg, model, case, data, data),
+        "P model init_params": lambda: init_params(p_cfg, p_model),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "sample_response", "setup_model", "DPIVAE.init", "init_params",
-    "Predictor", "train_model"])
+    "Predictor", "train_model", "P model init_params"])
 def test_entry_point_without_device_needs_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")

@@ -205,8 +205,6 @@ def test_init_params_is_seeded_and_torch_default_scaled():
 
 
 @pytest.mark.parametrize("change", [
-    dict(model_type="P"),
-    dict(encoder_x_arch="CNN"),
     dict(compute_dtype="bfloat16"),
     dict(remat_decode=True),
 ])

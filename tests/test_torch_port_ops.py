@@ -341,7 +341,7 @@ def test_case_tables_match_jax():
 
 def test_unknown_case_lists_available():
     with pytest.raises(KeyError, match="simple_beam"):
-        get_case("bridge")
+        get_case("no_such_case")
 
 
 @pytest.mark.parametrize("spec", [
