@@ -47,7 +47,8 @@ Phases; any failure exits non-zero before the result line:
 6. Training path: ``train_model`` on simple_beam / "dpivae" with
    use_pallas=True at full width (n_train 1,024, batch 64, 16 MC samples,
    validation of 512 points x 64 MC every 10 iterations, as bench.py
-   times it), n_iter cut from 20,000 to 2,000. The forward kernel must
+   times it), n_iter cut from 20,000 to 1,000 (2,000 before the single
+   run of phase 8 joined, for the time limit). The forward kernel must
    launch n_iter + n_iter / val_freq times and the hidden kernel n_iter
    times; every active log row must be finite, the last ELBO_val below
    the first, and the first 10 train rows must agree with a
@@ -58,10 +59,32 @@ Phases; any failure exits non-zero before the result line:
    "DPIVAE-A" (the P model, a frozen-MLP partial physics, the physical
    covariate delta_xs joined to z_x) through phase 4's serving checks and
    a profile of one request, then phase 6's training checks with n_iter
-   cut to 1,000; damped_oscillator / "dpivae" (S model) through phase 4's
+   cut to 500 (1,000 before phase 8); damped_oscillator / "dpivae" (S
+   model) through phase 4's
    serving checks. Every path's launches are counted from zero just
    before it and read just after.
-8. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+8. The single-run program, ``dpivae_tpu_torch.scripts.single_run``'s
+   ``main`` in process, on simple_beam / "dpivae" at full width with the
+   preset's use_pallas="auto", n_iter cut from 20,000 to 1,000, output in
+   a temporary directory under build/: "auto" must pick the kernel on
+   this card; the forward must launch n_iter + n_iter / val_freq times
+   and the hidden kernel n_iter times (the evaluation and the baselines
+   launch neither); every metric CSV must be there with its header and
+   finite values; ``load_model`` of the saved checkpoint must give a
+   Predictor whose eight outputs equal the in-memory model's under the
+   same seed exactly; LIN, GPR, MLP and the VAE must score finite R², MSE
+   and MAE, LIN's R² within 1e-3 of float64 least squares on the same
+   features; ``evaluate_model`` at 512 points x 512 MC must launch no
+   forward. Then ``disentanglement_metric`` with linear probes and with
+   MLP probes (epochs cut from 300 to 30). Each stage's wall time is
+   printed.
+9. The decode's options at bench.py's workload, 200 steps each:
+   remat_decode with use_pallas=True (the forward launches 2 n_iter +
+   n_iter / val_freq times, the hidden kernel n_iter; the first 10 train
+   rows agree with a remat_decode=False run from the same seeds and
+   weights), and compute_dtype="bfloat16" with "auto" (no launch; finite
+   log rows).
+10. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -91,8 +114,12 @@ SEED = 0
 RTOL = ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_TOL = 1e-4
-N_ITER = 2_000   # cut from the preset's 20,000 for the time limit
-N_ITER_BRIDGE = 1_000   # cut further for the time limit
+N_ITER = 1_000   # cut from the preset's 20,000 for the time limit
+N_ITER_BRIDGE = 500   # cut further for the time limit
+N_ITER_SINGLE_RUN = 1_000   # cut from the preset's 20,000 for the limit
+N_ITER_DECODE_OPTIONS = 200
+PROBE_EPOCHS = 30   # the MLP probes', cut from 300
+LSTSQ_TOL = 1e-3
 N_ROWS_COMPARED = 10
 N_REQUESTS = 3
 N_TIMED_REQUESTS = 20
@@ -768,6 +795,240 @@ def _profile_train_step(setup):
         _per_launch(events, kernel, "training 1024 rows")
 
 
+def _check_csvs(path, failures):
+    """Every metric CSV of a run: present, its header, finite values."""
+    import numpy as np
+
+    from dpivae_tpu_torch.train import TRAIN_COLUMNS, VAL_COLUMNS
+
+    headers = {"train": ["iter", *TRAIN_COLUMNS],
+               "val": ["iter", *VAL_COLUMNS]}
+    headers.update({n: ["iter", "value"]
+                    for n in (*TRAIN_COLUMNS, *VAL_COLUMNS)})
+    rows = 0
+    for name, header in headers.items():
+        file = os.path.join(path, f"{name}.csv")
+        if not os.path.exists(file):
+            failures.append(f"single run: {name}.csv is missing")
+            continue
+        with open(file) as f:
+            first = f.readline().strip().split(",")
+        values = np.loadtxt(file, delimiter=",", skiprows=1, ndmin=2)
+        rows += len(values)
+        if first != header:
+            failures.append(f"single run: {name}.csv has header {first}")
+        if not np.isfinite(values).all() or values.shape[1] != len(header):
+            failures.append(f"single run: {name}.csv has non-finite values "
+                            f"or {values.shape[1]} columns")
+    print(f"single run: {len(headers)} metric CSVs with their headers, "
+          f"{rows} rows, all finite")
+
+
+def _lstsq_r2(data_train, data_test):
+    """LIN's R² in float64: least squares with an intercept on the same
+    standardized [x ‖ c] features (numpy.linalg.lstsq)."""
+    import numpy as np
+
+    x, c, y = (a.double().cpu().numpy() for a in data_train[:3])
+    xt, ct, yt = (a.double().cpu().numpy() for a in data_test[:3])
+
+    def features(a, b):
+        f = np.concatenate(((a - x.mean(0)) / x.std(0),
+                            (b - c.mean(0)) / c.std(0)), -1)
+        return np.concatenate((f, np.ones((len(f), 1))), -1)
+
+    coef = np.linalg.lstsq(features(x, c), y, rcond=None)[0]
+    pred = features(xt, ct) @ coef
+    return 1 - ((yt - pred) ** 2).sum(0) / ((yt - yt.mean(0)) ** 2).sum(0)
+
+
+def _single_run(ops, failures, card):
+    """The single-run program in process (phase 8). Returns the (forward,
+    hidden) launches of the run."""
+    import tempfile
+
+    import numpy as np
+
+    from dpivae_tpu_torch.eval import disentanglement_metric, evaluate_model
+    from dpivae_tpu_torch.scripts import single_run
+    from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor
+    from dpivae_tpu_torch.train.checkpoint import load_model
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as out:
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        run = single_run.main([
+            "--case", "simple_beam", "--preset", "dpivae", "--name",
+            "chip_smoke", "--n_iter", str(N_ITER_SINGLE_RUN), "--output", out,
+            "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+        cfg = run.config
+        want = (cfg.n_iter + cfg.n_iter // cfg.val_freq, cfg.n_iter)
+        print(f"single run simple_beam / 'dpivae' ({card}): use_pallas "
+              f"{cfg.use_pallas!r} resolved to {run.model.use_pallas}; "
+              f"{cfg.n_iter} steps, stopped at {run.logs.stop_iter}; "
+              f"launches fused_mlp_fwd {launches[0]}, fused_mlp_hidden "
+              f"{launches[1]} (expected {want[0]}, {want[1]}); {wall:.2f} s "
+              f"in all")
+        if cfg.use_pallas != "auto" or run.model.use_pallas is not True:
+            failures.append("single run: use_pallas='auto' did not pick the "
+                            "kernel on this card")
+        if launches != want or run.logs.stop_iter != cfg.n_iter:
+            failures.append(f"single run: launches {launches}, expected "
+                            f"{want}, stopped at {run.logs.stop_iter}")
+        _check_csvs(run.paths["metrics"], failures)
+
+        t0 = time.perf_counter()
+        model, params = load_model(
+            os.path.join(run.paths["models"], "model"), run.case,
+            device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    outputs = tuple(SAMPLE_SLOTS)
+    x, c = run.data_test[:2]
+    got = Predictor(model, params, cfg, outputs=outputs, device="cuda")(
+        x, c, seed=SEED)
+    want_out = Predictor(run.model, run.params, cfg, outputs=outputs,
+                         device="cuda")(x, c, seed=SEED)
+    same = all(np.array_equal(got[o], want_out[o]) for o in outputs)
+    worst = max(float(np.abs(got[o] - want_out[o]).max()) for o in outputs)
+    print(f"single run: load_model's Predictor vs the in-memory model, "
+          f"{len(outputs)} outputs at {cfg.n_test} points x {cfg.n_mc_test} "
+          f"MC, seed {SEED}: {'equal' if same else 'DIFFERENT'} (max abs "
+          f"difference {worst:.3e})")
+    if not same:
+        failures.append("single run: the restored model's predictions "
+                        "differ from the in-memory model's")
+
+    for name, m in run.metrics.items():
+        print(f"single run metrics {name}: R2 {m['R2'].tolist()} MSE "
+              f"{m['MSE'].tolist()} MAE {m['MAE'].tolist()}")
+        if not all(np.isfinite(m[k]).all() for k in ("R2", "MSE", "MAE")):
+            failures.append(f"single run: {name}'s metrics are not finite")
+    if set(run.metrics) != {"LIN", "GPR", "MLP", cfg.name}:
+        failures.append(f"single run: metrics of {sorted(run.metrics)}")
+    r2_f64 = _lstsq_r2(run.data_train, run.data_test)
+    lin_gap = float(np.abs(run.metrics["LIN"]["R2"] - r2_f64).max())
+    print(f"single run: LIN R2 {run.metrics['LIN']['R2'].tolist()} vs "
+          f"float64 lstsq {r2_f64.tolist()}: |difference| {lin_gap:.3e} "
+          f"(tolerance {LSTSQ_TOL})")
+    if not lin_gap <= LSTSQ_TOL:
+        failures.append("single run: LIN's R2 is off float64 least squares")
+
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    t0 = time.perf_counter()
+    evaluate_model(cfg, run.case, run.model, run.params, run.data_test)
+    eval_s = time.perf_counter() - t0
+    eval_launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    print(f"single run: evaluate_model at {cfg.n_test} points x "
+          f"{cfg.n_mc_test} MC: launches fused_mlp_fwd {eval_launches[0]}, "
+          f"fused_mlp_hidden {eval_launches[1]} (expected 0, 0: y needs no "
+          f"decoder_x); {1e3 * eval_s:.1f} ms")
+    if eval_launches != (0, 0):
+        failures.append("single run: evaluate_model launched a kernel")
+
+    stages = {**run.seconds, "load": load_s}
+    print(f"single run stage wall times ({card}): " + ", ".join(
+        f"{name} {s:.3f} s" for name, s in stages.items()))
+
+    for regressor, kwargs in (("linear", None),
+                              ("mlp", dict(n_epochs=PROBE_EPOCHS))):
+        t0 = time.perf_counter()
+        rows = disentanglement_metric(
+            cfg, run.model, run.params, run.case, run.data_train,
+            run.data_test, regressor=regressor,
+            generator=torch.Generator(device="cuda").manual_seed(SEED),
+            mlp_kwargs=kwargs)
+        took = time.perf_counter() - t0
+        what = regressor + (f" ({PROBE_EPOCHS} epochs)" if kwargs else "")
+        print(f"disentanglement_metric, {what} probes: {took:.3f} s; " +
+              ", ".join(f"{b}/{f} {r:.4f}" for b, f, r in rows))
+        if len(rows) != 3 * len(run.case.factors) or not all(
+                np.isfinite(r[2]) for r in rows):
+            failures.append(f"disentanglement_metric ({regressor}): rows "
+                            f"missing or not finite")
+    return launches
+
+
+def _decode_options(ops, failures, card):
+    """remat_decode with the kernel, and bf16 with "auto" (phase 9).
+    Returns the (forward, hidden) launches of the two runs together."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.train import init_params, setup_model, train_model
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    case = get_case("simple_beam")
+    base = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, patience=10**9,
+        n_iter=N_ITER_DECODE_OPTIONS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data_train = sample_response(case, gen, base.n_train,
+                                 sample_dist=case.gt_dist(), device="cuda")
+    data_val = sample_response(case, gen, base.n_val,
+                               sample_dist=case.gt_dist(), device="cuda")
+
+    def train(cfg, params=None):
+        model = setup_model(cfg, case, data_train, device="cuda")
+        if params is None:
+            params = init_params(cfg, model, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        _, logs = train_model(cfg, model, case, data_train, data_val,
+                              params=params, generator=g, device="cuda")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        return (model, params, logs, took,
+                (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches))
+
+    n = base.n_iter
+    total = [0, 0]
+    remat_cfg = base.replace(use_pallas=True, remat_decode=True)
+    model, params, logs, took, launches = train(remat_cfg)
+    want = (2 * n + n // base.val_freq, n)
+    total = [a + b for a, b in zip(total, launches)]
+    _, _, plain_logs, _, _ = train(remat_cfg.replace(remat_decode=False),
+                                   params)
+    got = logs.train[:N_ROWS_COMPARED]
+    ref = plain_logs.train[:N_ROWS_COMPARED]
+    worst = float((got - ref).abs().max())
+    print(f"remat_decode, use_pallas=True ({card}): {n} steps in "
+          f"{took:.2f} s ({n / took:.1f} steps/s); launches fused_mlp_fwd "
+          f"{launches[0]}, fused_mlp_hidden {launches[1]} (expected "
+          f"{want[0]}, {want[1]}); first {N_ROWS_COMPARED} rows vs "
+          f"remat_decode=False max_abs_err {worst:.3e} (rtol {TRAIN_TOL} "
+          f"atol {TRAIN_TOL})")
+    if launches != want or not model.remat_decode:
+        failures.append(f"remat_decode: launches {launches}, expected {want}")
+    if not torch.allclose(got, ref, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        failures.append("remat_decode: the first train rows disagree with "
+                        "remat_decode=False")
+    if not torch.isfinite(logs.train).all():
+        failures.append("remat_decode: a log row is not finite")
+
+    bf16_cfg = base.replace(use_pallas="auto", compute_dtype="bfloat16")
+    model, _, logs, took, launches = train(bf16_cfg, params)
+    total = [a + b for a, b in zip(total, launches)]
+    finite = bool(torch.isfinite(logs.train).all()
+                  and torch.isfinite(logs.val).all())
+    _, elbo_val = logs.scalars("ELBO_val")
+    print(f"compute_dtype='bfloat16', use_pallas='auto' ({card}): resolved "
+          f"to {model.use_pallas}; {n} steps in {took:.2f} s "
+          f"({n / took:.1f} steps/s); launches fused_mlp_fwd {launches[0]}, "
+          f"fused_mlp_hidden {launches[1]} (expected 0, 0); log rows "
+          f"{'finite' if finite else 'NOT FINITE'}; ELBO_val "
+          f"{elbo_val[0]:.4f} -> {elbo_val[-1]:.4f}")
+    if launches != (0, 0) or model.use_pallas:
+        failures.append(f"bf16: launches {launches}, expected none")
+    if not finite:
+        failures.append("bf16: a log row is not finite")
+    return tuple(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -838,15 +1099,21 @@ def main() -> int:
     print(f"per request damped_oscillator / 'dpivae' ({card}): kernel "
           f"model {o_req_ms:.3f} ms, plain model {o_plain_ms:.3f} ms")
 
+    # This slice's paths: the single-run program, then the decode's two
+    # options.
+    s_fwd, s_hidden = _single_run(ops, failures, card)
+    d_fwd, d_hidden = _decode_options(ops, failures, card)
+
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
-                 + o_launches)
-    hidden_total = hidden_launches + b_hidden
+                 + o_launches + s_fwd + d_fwd)
+    hidden_total = hidden_launches + b_hidden + s_hidden + d_hidden
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
           f"{serve_launches} + training {fwd_launches}, bridge serving "
           f"{b_launches} + training {b_fwd}, damped_oscillator serving "
-          f"{o_launches} = {fwd_total}; fused_mlp_hidden simple_beam "
-          f"training {hidden_launches} + bridge training {b_hidden} = "
-          f"{hidden_total}")
+          f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd} = "
+          f"{fwd_total}; fused_mlp_hidden simple_beam training "
+          f"{hidden_launches} + bridge training {b_hidden} + single run "
+          f"{s_hidden} + remat and bf16 {d_hidden} = {hidden_total}")
 
     if failures:
         for f in failures:

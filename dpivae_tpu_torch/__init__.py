@@ -16,11 +16,15 @@ against; module names mirror it so each counterpart is easy to find:
 - ``dpivae_tpu_torch.models``   — encoders, decoders and ``DPIVAE``
   (dpivae_tpu/models/).
 - ``dpivae_tpu_torch.train``    — ``setup_model``/``init_params``, the
-  grouped Adam and ``train_model`` (dpivae_tpu/train/).
+  grouped Adam, ``train_model`` and checkpoints (dpivae_tpu/train/).
+- ``dpivae_tpu_torch.eval``     — the VAE's test metrics, the LIN/GPR/MLP
+  baselines and the disentanglement probes (dpivae_tpu/eval/).
 - ``dpivae_tpu_torch.serving``  — the MC-posterior predictor
   (dpivae_tpu/serving.py).
-- ``dpivae_tpu_torch.convert``  — JAX params pytree -> this package's
-  modules.
+- ``dpivae_tpu_torch.scripts``  — ``single_run``, the single-run program
+  (scripts/0_single_run.py).
+- ``dpivae_tpu_torch.convert``  — JAX params pytree and fitted scalers ->
+  this package's.
 
 This package imports neither ``jax`` nor ``dpivae_tpu``. Its entry points
 run on the CUDA device unless the caller passes ``device="cpu"``.

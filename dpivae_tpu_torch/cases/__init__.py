@@ -4,16 +4,17 @@ A case is a frozen dataclass built on demand by ``get_case(name)``; all
 three of the JAX package's cases are registered (``list_cases``). Frozen
 surrogates are tanh MLPs over numpy weights read from the JAX package's
 bundled archives by file path (reading a data file imports nothing).
-
-``Case.fingerprint`` (dpivae_tpu/cases/__init__.py:180-275) is left out:
-it only keys the JAX package's executable cache, which has no counterpart
-here (ROADMAP.md, queue 1, item 12).
+``Case.fingerprint`` is a content digest of a case, which a saved model
+keeps (train/checkpoint.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import inspect
+import re
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,17 +55,21 @@ class PriorSpec:
 
 
 def device_constants(copies: Dict, arrays: Sequence[np.ndarray],
-                     like: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """``arrays`` as tensors of ``like``'s device and dtype, copied there on
-    first use and kept in ``copies``: a copy from host memory on every call
-    would make each call wait for the device. The copies are made outside
-    inference mode, so that a first call under ``torch.inference_mode``
-    leaves tensors that autograd can still use."""
-    key = (like.device, like.dtype)
+                     like: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """``arrays`` as tensors of ``like``'s device and of ``dtype`` (by
+    default ``like``'s), copied there on first use and kept in ``copies``:
+    a copy from host memory on every call would make each call wait for
+    the device. The copies are made outside inference mode, so that a
+    first call under ``torch.inference_mode`` leaves tensors that autograd
+    can still use."""
+    dtype = like.dtype if dtype is None else dtype
+    key = (like.device, dtype)
     if key not in copies:
         with torch.inference_mode(False):
             copies[key] = tuple(
-                torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                torch.as_tensor(a, dtype=dtype, device=like.device)
                 for a in arrays)
     return copies[key]
 
@@ -75,7 +80,8 @@ class Surrogate:
     (counterpart of dpivae_tpu/cases/__init__.py:57-91).
 
     Weights are numpy constants in the JAX layout ``w: (in, out)``; compute
-    follows the input's device and dtype (``device_constants``).
+    follows the input's device and dtype (``device_constants``), so bf16
+    latents run the surrogate in bf16, as in the JAX package.
     """
 
     params: Any  # {"layers": ({"w", "b"}, ...)}
@@ -176,6 +182,91 @@ class Case:
     def prior_x_dist(self):
         """Fixed marginal prior over z_x."""
         return get_prior_dist(self.prior_x)
+
+    def fingerprint(self) -> str:
+        """Content digest of the case (counterpart of
+        dpivae_tpu/cases/__init__.py:180-275; it need not equal the JAX
+        package's digest of its own case): priors, factor table, physics
+        and surrogate weights. ``save_model`` records it and ``load_model``
+        warns when the case it restores against has another.
+
+        Every field is hashed recursively with type-tagged length framing:
+        scalars and strings by repr, arrays and tensors by bytes,
+        dataclasses field by field (their per-device caches, fields that
+        take no part in comparison, left out), functools.partial by
+        (func, args, keywords), bound methods by (code, instance state),
+        other callables by source (else qualname), closure cells and
+        defaults. A function's module-level globals are not hashed.
+        """
+        cached = self.__dict__.get("_fingerprint")
+        if cached is not None:
+            return cached
+        h = hashlib.sha256()
+
+        def tag(kind, payload: bytes):
+            # Length framing: adjacent reprs must not run together
+            h.update(b"<%s:%d>" % (kind.encode(), len(payload)))
+            h.update(payload)
+
+        def feed(o):
+            if o is None or isinstance(o, (str, int, float, bool, bytes)):
+                tag(type(o).__name__, repr(o).encode())
+            elif isinstance(o, (np.ndarray, torch.Tensor)):
+                a = (o.detach().cpu().numpy() if isinstance(o, torch.Tensor)
+                     else o)
+                tag("arr", str((a.shape, str(a.dtype))).encode())
+                tag("buf", np.ascontiguousarray(a).tobytes())
+            elif isinstance(o, (list, tuple)):
+                tag("seq", str(len(o)).encode())
+                for x in o:
+                    feed(x)
+            elif isinstance(o, (set, frozenset)):
+                tag("set", str(len(o)).encode())
+                for x in sorted(o, key=repr):
+                    feed(x)
+            elif isinstance(o, Mapping):
+                tag("map", str(len(o)).encode())
+                for k in sorted(o, key=repr):
+                    feed(k)
+                    feed(o[k])
+            elif isinstance(o, functools.partial):
+                tag("partial", b"")
+                feed(o.func)
+                feed(tuple(o.args))
+                feed(dict(o.keywords))
+            elif inspect.ismethod(o):
+                tag("method", o.__func__.__qualname__.encode())
+                feed(o.__func__)
+                feed(getattr(o.__self__, "__dict__", repr(o.__self__)))
+            elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+                tag("dc", type(o).__qualname__.encode())
+                for f in dataclasses.fields(o):
+                    if f.compare:
+                        tag("field", f.name.encode())
+                        feed(getattr(o, f.name))
+            elif callable(o):
+                try:
+                    tag("src", inspect.getsource(o).encode())
+                except (OSError, TypeError):
+                    tag("qualname", getattr(
+                        o, "__qualname__", type(o).__qualname__).encode())
+                for cell in getattr(o, "__closure__", None) or ():
+                    try:
+                        feed(cell.cell_contents)
+                    except ValueError:  # empty cell
+                        pass
+                for d in getattr(o, "__defaults__", None) or ():
+                    feed(d)
+            else:
+                # Memory addresses stripped, so that the digest is stable
+                # across processes
+                tag("repr", re.sub(r"0x[0-9a-fA-F]+", "0x",
+                                   repr(o)).encode())
+
+        feed(self)
+        digest = h.hexdigest()
+        object.__setattr__(self, "_fingerprint", digest)  # frozen: memo
+        return digest
 
 
 _REGISTRY: Dict[str, Callable[[], Case]] = {}

@@ -28,6 +28,7 @@ from dpivae_tpu_torch.cases import (
     register_case,
 )
 from dpivae_tpu_torch.physics import mass_spring
+from dpivae_tpu_torch.physics.oscillator import grid_dtype
 from dpivae_tpu_torch.utils.io import load_mlp_npz
 
 _ARTIFACT = os.path.join(
@@ -83,7 +84,8 @@ class UndampedPhysics:
                                       repr=False, compare=False)
 
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
-        (t,) = device_constants(self._copies, (self.t,), z)
+        (t,) = device_constants(self._copies, (self.t,), z,
+                                dtype=grid_dtype(z))
         return mass_spring(z, t)
 
 

@@ -122,8 +122,9 @@ class TrainConfig:
 
     # The fused-MLP kernel for the data-driven decoder branch:
     # False | True | "auto". In this package True is the hand-written CUDA
-    # kernel (ops/fused_mlp.py), False plain PyTorch; "auto" resolves to
-    # False (train/setup.py) until a measurement on the card sets a band.
+    # kernel (ops/fused_mlp.py), False plain PyTorch; "auto" picks the
+    # kernel inside the band measured on the card (train/setup.py,
+    # ops/fused_mlp.py auto_select) and plain PyTorch elsewhere.
     use_pallas: Any = "auto"
     # Override every MLP trunk width in the model; None keeps the
     # reference architecture.

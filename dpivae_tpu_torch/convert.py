@@ -8,6 +8,8 @@ dense layers as ``{"w": (in, out), "b": (out,)}`` (dpivae_tpu/models/nn.py:
 weight (ch_out, ch_in, kernel) as ``nn.Conv1d``'s. ``params_from_jax``
 maps one onto the other; it takes the pytree with numpy leaves
 (``jax.tree.map(np.asarray, params)``) and imports no jax.
+``scalers_from_jax`` carries a JAX model's fitted input scalers over with
+them, so that a trained JAX model crosses whole.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from dpivae_tpu_torch.models.vae import DPIVAE, DPIVAEParams
-from dpivae_tpu_torch.utils import DeviceLike
+from dpivae_tpu_torch.utils import DeviceLike, resolve_device
+from dpivae_tpu_torch.utils.transforms import StandardScaler
 
 
 def state_dict_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -63,3 +66,22 @@ def params_from_jax(model: DPIVAE, tree,
     params = model.init(torch.Generator().manual_seed(0), device=device)
     params.load_state_dict(state_dict_from_jax(tree), strict=True)
     return params
+
+
+def scalers_from_jax(jax_model, device: DeviceLike = None
+                     ) -> Dict[str, StandardScaler]:
+    """The fitted input scalers of a JAX ``DPIVAE`` (its ``transform_x``,
+    ``transform_c`` and ``transform_y``, each a ``StandardScaler`` with
+    ``mean`` and ``scale``) as this package's, on ``device`` (None
+    meaning CUDA): ``dataclasses.replace(model, **scalers_from_jax(m))``
+    gives a port model that standardizes as the JAX one does."""
+    device = resolve_device(device)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+    return {
+        name: StandardScaler(mean=tensor(getattr(jax_model, name).mean),
+                             scale=tensor(getattr(jax_model, name).scale))
+        for name in ("transform_x", "transform_c", "transform_y")
+    }

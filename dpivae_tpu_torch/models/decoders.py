@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,9 +32,9 @@ class GaussianDecoder(MLP):
 
 
 class GradRevAdditiveDecoder(nn.Module):
-    """The physics+NN additive fusion decoder. Its trainable part is the
-    data-driven branch nz_d -> hidden -> n_output; the frozen physics model
-    is passed in at call time."""
+    """The data-driven branch of the physics+NN additive fusion decoder,
+    nz_d -> hidden -> n_output; the frozen physics beside it runs in
+    ``DPIVAE.decode``, and the two predictions are summed by the caller."""
 
     def __init__(self, nz_d: int, n_output: int, generator: torch.Generator,
                  device: torch.device, hidden: int = DECODER_X_HIDDEN):
@@ -44,28 +44,21 @@ class GradRevAdditiveDecoder(nn.Module):
 
     def forward(
         self,
-        z: torch.Tensor,
         z_rev: torch.Tensor,
-        physics_model: Callable[[torch.Tensor], torch.Tensor],
         grl_alpha: Optional[float] = None,
         use_pallas: bool = False,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (xh_p, xh_d), the physics and data-driven predictions,
-        not summed.
+    ) -> torch.Tensor:
+        """xh_d, the data-driven prediction.
 
         Args:
-            z: physics latents concat physical covariates (z_x || c_phys).
             z_rev: data-driven latents (z_c || z_y), gradient-reversed when
                 ``grl_alpha`` is not None.
-            physics_model: frozen physics forward.
             grl_alpha: GRL strength; None disables the adversarial branch.
-            use_pallas: run the data-driven branch through ``fused_mlp``
-                (the CUDA kernel on the card) instead of two nn.Linear.
+            use_pallas: run the branch through ``fused_mlp`` (the CUDA
+                kernel on the card) instead of two nn.Linear.
         """
         z_d = maybe_grad_reverse(z_rev, grl_alpha)
         if use_pallas:
-            xh_d = fused_mlp(z_d, self.fx0.weight, self.fx0.bias,
+            return fused_mlp(z_d, self.fx0.weight, self.fx0.bias,
                              self.fx1.weight, self.fx1.bias)
-        else:
-            xh_d = self.fx1(F.relu(self.fx0(z_d)))
-        return physics_model(z), xh_d
+        return self.fx1(F.relu(self.fx0(z_d)))

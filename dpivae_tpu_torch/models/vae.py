@@ -16,19 +16,21 @@ Randomness is explicit: ``sample``/``forward``/``encode`` take a
 Both models are ported, S (one joint encoder) and P (three per-block
 encoders over the same x), each with the dense or the Conv1d encoder
 trunk, for sampling and for the training loss (with the MC-chunked form
-of ``mc_chunk``). Not yet: ``compute_dtype="bfloat16"`` and
-``remat_decode``; each raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+of ``mc_chunk``), and with the decode's two options: ``remat_decode``
+(the decode recomputed in the backward, ``torch.utils.checkpoint``) and
+``compute_dtype="bfloat16"`` (the decode's MLPs and physics in bf16).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping, Optional, Tuple
+from typing import Callable, Collection, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from dpivae_tpu_torch.models.decoders import (
     DECODER_X_HIDDEN,
@@ -52,11 +54,12 @@ from dpivae_tpu_torch.utils.distributions import MarginalDistribution
 
 Noise = Optional[Mapping[str, torch.Tensor]]
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to dpivae_tpu_torch yet (ROADMAP.md, {item})"
-    )
+# The decode's outputs by the name ``parts`` selects them with.
+DECODE_PARTS = ("xh_p", "xh_d", "c", "y")
+# The decode outputs each slot of ``sample``'s 9-tuple reads.
+_SLOT_PARTS = {0: ("xh_p", "xh_d"), 1: ("xh_p",), 2: ("xh_d",), 3: ("c",),
+               4: ("y",)}
+_COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
 def _normal_log_prob(x, loc, scale):
@@ -146,7 +149,12 @@ class DPIVAE:
     output_transform_zx: Optional[object] = None  # squash for z_x
     # Run decoder_x's data-driven branch through the fused-MLP kernel
     use_pallas: bool = False
+    # The decode's dtype: None (f32) or "bfloat16", for the decoder MLPs
+    # and the physics; the encoder, the MVN algebra, the reductions and
+    # the stored params stay f32, and the decode's outputs return to f32.
     compute_dtype: Optional[str] = None
+    # Recompute the decode in the backward instead of keeping its
+    # activations (torch.utils.checkpoint, non-reentrant)
     remat_decode: bool = False
     # MC chunking of the training loss's decode; sampling ignores it
     mc_chunk: Optional[int] = None
@@ -158,10 +166,10 @@ class DPIVAE:
             arch = getattr(self, f"encoder_{which}_arch")
             if arch not in ("NN", "CNN"):
                 raise ValueError(f"Unknown encoder_{which} choice: {arch}")
-        if self.compute_dtype is not None:
-            raise _not_ported("compute_dtype='bfloat16'", "queue 1, item 7")
-        if self.remat_decode:
-            raise _not_ported("remat_decode", "queue 1, item 7")
+        if self.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype must be None or 'bfloat16', got "
+                f"{self.compute_dtype!r}")
 
     # ------------------------------------------------------------------
     # Initialization
@@ -268,15 +276,54 @@ class DPIVAE:
             *params.encoder_y(x), n, generator=generator, eps=eps_y)
         return zx, zc, zy, dens_zx + dens_zc + dens_zy
 
-    def decode(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha=None):
-        """(xh_p, xh_d, c_hat, log_sigma_c, y_hat, log_sigma_y)."""
-        xh_p, xh_d = params.decoder_x(
-            zx_in, torch.cat((zc, zy), dim=-1), self.physics_model,
-            grl_alpha=grl_alpha, use_pallas=self.use_pallas,
-        )
-        yh, log_sigma_y = params.decoder_y(zy)
-        ch, log_sigma_c = params.decoder_c(zc)
-        return xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y
+    def decode(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha=None,
+               parts: Collection[str] = DECODE_PARTS):
+        """(xh_p, xh_d, c_hat, log_sigma_c, y_hat, log_sigma_y), computing
+        only the outputs named in ``parts`` (a subset of DECODE_PARTS; "c"
+        and "y" each name a pair) and None in the others' places.
+
+        With ``remat_decode`` the decode is one checkpointed region
+        (non-reentrant): the backward recomputes its activations from the
+        latents, so with the kernel on a train step launches the forward
+        kernel twice. The decode draws no random numbers, so no RNG state
+        is kept for the recompute.
+        """
+        if self.remat_decode:
+            return checkpoint(self._decode_impl, params, zx_in, zc, zy,
+                              grl_alpha, parts, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._decode_impl(params, zx_in, zc, zy, grl_alpha, parts)
+
+    def _decode_impl(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha,
+                     parts):
+        """The decode. With ``compute_dtype`` the latents and the decoder
+        weights (cast on the way in, through ``functional_call``: the
+        stored parameters stay f32 and take f32 gradients) run in that
+        dtype, and every output returns to f32."""
+        dt = _COMPUTE_DTYPES[self.compute_dtype]
+
+        def run(module, *args, **kwargs):
+            if dt is None:
+                return module(*args, **kwargs)
+            weights = {name: p.to(dt) for name, p in module.named_parameters()}
+            return functional_call(module, weights, args, kwargs)
+
+        if dt is not None:
+            zx_in, zc, zy = zx_in.to(dt), zc.to(dt), zy.to(dt)
+        xh_d = xh_p = ch = log_sigma_c = yh = log_sigma_y = None
+        if "xh_d" in parts:
+            xh_d = run(params.decoder_x, torch.cat((zc, zy), dim=-1),
+                       grl_alpha=grl_alpha, use_pallas=self.use_pallas)
+        if "xh_p" in parts:
+            xh_p = self.physics_model(zx_in)
+        if "y" in parts:
+            yh, log_sigma_y = run(params.decoder_y, zy)
+        if "c" in parts:
+            ch, log_sigma_c = run(params.decoder_c, zc)
+        out = (xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y)
+        if dt is not None:
+            out = tuple(None if a is None else a.float() for a in out)
+        return out
 
     def _encode_latents(self, params: DPIVAEParams, x, c, cond: bool, n: int,
                         *, generator=None, noise: Noise = None):
@@ -381,7 +428,7 @@ class DPIVAE:
 
     def sample(self, params: DPIVAEParams, x, c, cond: bool = False,
                n: int = 1, grl_alpha=None, *, generator=None,
-               noise: Noise = None):
+               noise: Noise = None, slots: Optional[Collection[int]] = None):
         """Sample noisy VAE predictions: (x_sample, xh_p, xh_d, c_sample,
         y_sample, zx, zc, zy, log q), each with a leading MC axis of n.
 
@@ -389,16 +436,30 @@ class DPIVAE:
         standard normals: "z" (n, batch, nz) for the encoder, "z_prior"
         (n, batch, nz_c) when ``cond``, and "x", "c", "y" (n, batch, nd_*)
         for the observation noise.
+
+        ``slots``, indices into the 9-tuple, computes only those outputs
+        and what they need, with None in the other places: (4,) runs no
+        decoder_x. The generator draws the same numbers either way, so
+        each slot computed equals the full sample's bit for bit.
         """
-        xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y, zx, zc, zy, dens_z = (
-            self.forward(params, x, c, cond=cond, n=n, grl_alpha=grl_alpha,
-                         generator=generator, noise=noise)
-        )
-        sigma_x = torch.exp(params.log_sigma_x)
-        x_sample = xh_p + xh_d + sigma_x * _normal(
-            noise, "x", xh_p.shape, generator, xh_p)
-        c_sample = ch + torch.exp(log_sigma_c) * _normal(
-            noise, "c", ch.shape, generator, ch)
-        y_sample = yh + torch.exp(log_sigma_y) * _normal(
-            noise, "y", yh.shape, generator, yh)
-        return x_sample, xh_p, xh_d, c_sample, y_sample, zx, zc, zy, dens_z
+        slots = range(9) if slots is None else slots
+        parts = {p for i in slots for p in _SLOT_PARTS.get(i, ())}
+        zx, zc, zy, dens_z, zx_in = self._encode_latents(
+            params, x, c, cond, n, generator=generator, noise=noise)
+        xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y = self.decode(
+            params, zx_in, zc, zy, grl_alpha=grl_alpha, parts=parts)
+        # The observation noise is drawn for every slot, used or not, so
+        # that the generator's stream does not depend on ``slots``.
+        lead = (n, *x.shape[:-1])
+        eps_x = _normal(noise, "x", (*lead, self.nd_x), generator, zx)
+        eps_c = _normal(noise, "c", (*lead, self.nd_c), generator, zx)
+        eps_y = _normal(noise, "y", (*lead, self.nd_y), generator, zx)
+        x_sample = c_sample = y_sample = None
+        if 0 in slots:
+            x_sample = xh_p + xh_d + torch.exp(params.log_sigma_x) * eps_x
+        if 3 in slots:
+            c_sample = ch + torch.exp(log_sigma_c) * eps_c
+        if 4 in slots:
+            y_sample = yh + torch.exp(log_sigma_y) * eps_y
+        full = (x_sample, xh_p, xh_d, c_sample, y_sample, zx, zc, zy, dens_z)
+        return tuple(a if i in slots else None for i, a in enumerate(full))

@@ -25,6 +25,9 @@ on the CPU) before the plain matrix products of the gradients.
 
 ``fused_mlp.launches`` and ``fused_mlp_hidden.launches`` count each
 kernel's launches, so a run can show that it went through the kernels.
+
+``auto_select`` resolves ``use_pallas="auto"`` for a call shape on a
+device (the counterpart of ``auto_select``, pallas_mlp.py:124-176).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import warnings
 from pathlib import Path
 from typing import Tuple
 
@@ -48,6 +52,57 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+# The band where use_pallas="auto" picks the kernel, measured on the card
+# named below by chip_smoke.py (PERF.md §6): the forward
+# beat plain PyTorch at every shape measured, 1,024 to 262,144 rows at
+# 4 -> 128 -> 32 and 8 -> 128 -> 64 and 65,536 x (4 -> 256 -> 32), and
+# the hidden recompute beat plain and torch._addmm_activation at 1,024 x
+# (4 -> 128), 1,024 x (8 -> 128) and 65,536 x (4 -> 256). Outside the
+# band, or on another card, "auto" keeps plain PyTorch.
+_AUTO_DEVICE_NAME = "NVIDIA H100 80GB HBM3"
+_AUTO_MAX_D_IN = 16
+_AUTO_HIDDEN = (128, 256)
+_AUTO_D_OUT = (32, 64)
+_AUTO_ROWS = (1_000, 262_144)
+_warned_device_names: set = set()
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device)
+
+
+def _device_name_matches(device: torch.device) -> bool:
+    """True on the card the band was measured on; another card gets a
+    one-time warning and False."""
+    name = _device_name(device)
+    if name == _AUTO_DEVICE_NAME:
+        return True
+    if name not in _warned_device_names:
+        _warned_device_names.add(name)
+        warnings.warn(
+            f"use_pallas='auto': the kernel's band was measured on "
+            f"{_AUTO_DEVICE_NAME!r} but this device is {name!r}; keeping "
+            f"plain PyTorch. Measure with chip_smoke.py on this card and "
+            f"update ops/fused_mlp.py's _AUTO_* constants (or set "
+            f"use_pallas=True) if the kernel wins here."
+        )
+    return False
+
+
+def auto_select(rows: int, d_in: int, d_hidden: int, d_out: int,
+                device) -> bool:
+    """Resolve ``use_pallas="auto"`` for a fused-MLP call shape on
+    ``device``: True only on a CUDA device of the measured card and inside
+    the measured band; False on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    in_band = (d_in <= _AUTO_MAX_D_IN and d_hidden in _AUTO_HIDDEN
+               and d_out in _AUTO_D_OUT
+               and _AUTO_ROWS[0] <= rows <= _AUTO_ROWS[1])
+    return in_band and _device_name_matches(device)
 
 
 def fused_mlp_reference(x, w0, b0, w1, b1):

@@ -16,9 +16,12 @@ def euler_bernoulli_point_load(z, I=2e-6, L=1.0, P=1.0, npts=200):
         npts: number of evaluation points along the beam.
 
     Returns:
-        (..., npts) deflection in mm (negative down).
+        (..., npts) deflection in mm (negative down). The grid is f32 (f64
+        for f64 z), as the JAX package's: bf16 latents round E and a to
+        bf16 and the deflection is computed in f32.
     """
-    x = torch.linspace(0.0, L, npts, device=z.device, dtype=z.dtype)
+    x = torch.linspace(0.0, L, npts, device=z.device,
+                       dtype=torch.promote_types(z.dtype, torch.float32))
     E = z[..., 0:1] * 1e6
     a = z[..., 1:2]
     b = L - a

@@ -5,10 +5,16 @@ dpivae_tpu/physics/oscillator.py:14-63).
 case: an undamped unit-stiffness oscillator whose only latent is the mass.
 ``mass_spring_dashpot`` is the full damped, temperature-dependent
 generator in closed form. The time grid ``t`` is a tensor on z's device
-(a numpy grid is copied there).
+(a numpy grid is copied there), in f32 (f64 for f64 z), as the JAX
+package's: bf16 latents give f32 responses.
 """
 
 import torch
+
+
+def grid_dtype(z: torch.Tensor) -> torch.dtype:
+    """The time grid's dtype for latents ``z``: f32, or f64 for f64 z."""
+    return torch.promote_types(z.dtype, torch.float32)
 
 
 def mass_spring(z, t):
@@ -21,7 +27,7 @@ def mass_spring(z, t):
     Returns:
         (..., npts) displacement.
     """
-    t = torch.as_tensor(t, dtype=z.dtype, device=z.device)
+    t = torch.as_tensor(t, dtype=grid_dtype(z), device=z.device)
     k = 1.0
     x0 = 1.0
     xd0 = 0.0
@@ -44,7 +50,7 @@ def mass_spring_dashpot(z, t, k=1.0, omega_f=None, T0=20.0, alpha_T=0.01):
         (..., npts) displacement of the underdamped solution.
     """
     del omega_f  # forcing amplitude is zero in the case study
-    t = torch.as_tensor(t, dtype=z.dtype, device=z.device)
+    t = torch.as_tensor(t, dtype=grid_dtype(z), device=z.device)
     m = z[..., 0:1]
     c = z[..., 1:2]
     T = z[..., 2:3]

@@ -1,22 +1,26 @@
-"""Model assembly (counterpart of dpivae_tpu/train/setup.py:116-252,299-305).
+"""Model assembly (counterpart of dpivae_tpu/train/setup.py:116-305).
 
 ``setup_model`` wires the DPIVAE from a config, a case and the training
 data: it fits the input StandardScalers, builds the fixed z_x prior and
 the encoder output squash (Logistic -> ShiftScale into the prior bounds;
 for the S model on the z_x slice of the joint latent only), selects the P
 (three per-block encoders) or S (one joint encoder) model, and resolves
-``use_pallas``/``mc_chunk``.
+``use_pallas``/``mc_chunk``. ``make_template_model`` builds the same model
+with input scalers that refuse to run, for restoring a checkpoint.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from dpivae_tpu_torch.cases import Case
 from dpivae_tpu_torch.config import TrainConfig
+from dpivae_tpu_torch.models.decoders import DECODER_X_HIDDEN
 from dpivae_tpu_torch.models.vae import DPIVAE, DPIVAEParams
+from dpivae_tpu_torch.ops.fused_mlp import auto_select
 from dpivae_tpu_torch.utils import DeviceLike, resolve_device
 from dpivae_tpu_torch.utils.transforms import (
     Chain,
@@ -93,13 +97,12 @@ def setup_model(config: TrainConfig, case: Case, data_train,
             decoder_x_hidden=w,
         )
 
-    # "auto" resolves to plain PyTorch: the JAX package's band for it was
-    # measured on a TPU v5e and says nothing about this card; the kernel
-    # earns an "auto" band only from a measurement on the card.
-    use_pallas = config.use_pallas is True
     # mc_chunk shapes only the training loss's decode; "auto" resolves to
     # None, since its JAX threshold is a TPU VMEM cliff.
     mc_chunk = None if config.mc_chunk == "auto" else config.mc_chunk
+    use_pallas = resolve_use_pallas(
+        config, case, mc_chunk,
+        widths.get("decoder_x_hidden", DECODER_X_HIDDEN), device)
 
     return DPIVAE(
         prior_x=case.prior_x_dist(),
@@ -130,6 +133,59 @@ def setup_model(config: TrainConfig, case: Case, data_train,
         mc_chunk=mc_chunk,
         **widths,
     )
+
+
+def resolve_use_pallas(config: TrainConfig, case: Case, mc_chunk,
+                       d_hidden: int, device: torch.device) -> bool:
+    """``use_pallas`` as a bool. "auto" resolves on the training shape of
+    the one op the kernel covers, decoder_x's data branch: n_mc_train x
+    n_batch rows, or mc_chunk x n_batch when the loss's decode is chunked,
+    by ``ops.fused_mlp.auto_select`` on ``device`` (False on the CPU, and
+    outside the band measured on the card). The choice then holds at every
+    call site, validation and sampling included. With ``compute_dtype``
+    set "auto" is False: the kernel is f32 (``use_pallas=True`` with
+    ``compute_dtype`` already raised in ``TrainConfig``)."""
+    if config.use_pallas != "auto":
+        return bool(config.use_pallas)
+    if config.compute_dtype is not None:
+        return False
+    mc_rows = config.n_mc_train
+    if mc_chunk is not None:
+        mc_rows = min(mc_rows, mc_chunk)
+    return auto_select(rows=mc_rows * config.n_batch,
+                       d_in=config.nz_c + config.nz_y, d_hidden=d_hidden,
+                       d_out=case.nd_x, device=device)
+
+
+class _UnfittedTransform:
+    """Fail-loud stand-in for a template model's input transforms:
+    ``transform_inputs`` takes None as identity, so a template with None
+    transforms would silently skip the standardization."""
+
+    def _raise(self, *args, **kwargs):
+        raise RuntimeError(
+            "this is a template model (make_template_model): its input "
+            "transforms were never fitted to data. Give it the fitted "
+            "scalers (train.checkpoint.load_model does) before calling "
+            "loss/sample/forward."
+        )
+
+    forward = _raise
+    inverse = _raise
+
+
+def make_template_model(config: TrainConfig, case: Case,
+                        device: DeviceLike = None) -> DPIVAE:
+    """A DPIVAE on ``device`` (None means CUDA) whose input transforms
+    raise on use: enough for ``init`` (the parameter shapes depend only on
+    the dims) and for ``load_model``, which puts the saved scalers in."""
+    device = resolve_device(device)
+    dummy = tuple(torch.zeros((config.n_train, d), device=device)
+                  for d in (case.nd_x, case.nd_c, case.nd_y))
+    model = setup_model(config, case, dummy, device=device)
+    sentinel = _UnfittedTransform()
+    return dataclasses.replace(model, transform_x=sentinel,
+                               transform_c=sentinel, transform_y=sentinel)
 
 
 def init_params(config: TrainConfig, model: DPIVAE,

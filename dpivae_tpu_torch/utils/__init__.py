@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 # -0.5 * log(2*pi), the Gaussian normalization constant
@@ -32,6 +33,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def to_numpy(a) -> np.ndarray:
+    """A tensor (read back from its device) or an array, as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def randn(shape: Sequence[int], generator: Optional[torch.Generator],

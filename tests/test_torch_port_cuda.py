@@ -1,7 +1,9 @@
 """The CUDA fused-MLP kernels against their plain PyTorch versions, on the
 card: the forward, the hidden-layer recompute, and the gradients of
-FusedMLPFunction against autograd through the plain forward; and the
-Conv1d encoder on the card against the same module in float64.
+FusedMLPFunction against autograd through the plain forward; the Conv1d
+encoder on the card against the same module in float64; and the loss's
+gradients under ``remat_decode`` with the kernel against the plain
+decode.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The file imports no jax, since the machine with the card has none;
@@ -19,10 +21,13 @@ the arithmetic, that one TF32 pass misses 1e-5 and the split does not).
 """
 
 import copy
+import dataclasses
 
 import pytest
 import torch
 
+from dpivae_tpu_torch import TrainConfig
+from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.models.encoders import CNNEncoder
 from dpivae_tpu_torch.ops.fused_mlp import (
     fused_mlp,
@@ -31,6 +36,8 @@ from dpivae_tpu_torch.ops.fused_mlp import (
     fused_mlp_on_path,
     fused_mlp_reference,
 )
+from dpivae_tpu_torch.train import init_params, setup_model
+from dpivae_tpu_torch.utils.data import sample_response
 
 pytestmark = pytest.mark.cuda
 
@@ -210,3 +217,48 @@ def test_cnn_encoder_matches_float64_with_cudnn_tf32_on(device):
         torch.backends.cudnn.allow_tf32 = before
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w.float(), rtol=1e-5, atol=1e-5)
+
+
+def test_remat_decode_gradients_match_plain_autograd(device):
+    """simple_beam/"dpivae" at its training shape (64 points x 16 MC, the
+    forward at 1,024 rows) with the kernel and ``remat_decode``: one loss
+    and backward launch the forward twice (the backward recomputes the
+    decode) and the hidden kernel once, and every gradient equals the
+    same loss's with the kernel and no remat (rtol 1e-4 / atol 1e-5, the
+    recompute repeats the same arithmetic) and with plain PyTorch's decode
+    (rtol 1e-3 / atol 1e-5: the kernel's 3xTF32 forward differs from
+    plain f32 by up to 1e-5, and a weight's gradient sums 1,024 rows)."""
+    case = get_case("simple_beam")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_pallas=True, remat_decode=True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    data = sample_response(case, gen, cfg.n_train, sample_dist=case.gt_dist(),
+                           device=device)
+    model = setup_model(cfg, case, data, device=device)
+    assert model.use_pallas and model.remat_decode
+    params = init_params(cfg, model, device=device)
+    batch = tuple(a[:cfg.n_batch] for a in data[:3])
+    noise = {"z": torch.randn(cfg.n_mc_train, cfg.n_batch, 6, generator=gen,
+                              device=device)}
+    denom = cfg.n_batch * (case.nd_x + case.nd_c + case.nd_y)
+
+    def grads(m):
+        params.zero_grad(set_to_none=True)
+        out = m.loss(params, *batch, n=cfg.n_mc_train,
+                     grl_alpha=cfg.lambda_g0, noise=noise)
+        (torch.sum(out[0]) / denom).backward()
+        return {k: p.grad.clone() for k, p in params.named_parameters()}
+
+    fwd, hidden = fused_mlp.launches, fused_mlp_hidden.launches
+    got = grads(model)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches - fwd, fused_mlp_hidden.launches - hidden) \
+        == (2, 1)
+    kernel = grads(dataclasses.replace(model, remat_decode=False))
+    plain = grads(dataclasses.replace(model, remat_decode=False,
+                                      use_pallas=False))
+    for name, g in got.items():
+        torch.testing.assert_close(g, kernel[name], rtol=1e-4, atol=1e-5,
+                                   msg=name)
+        torch.testing.assert_close(g, plain[name], rtol=1e-3, atol=1e-5,
+                                   msg=name)

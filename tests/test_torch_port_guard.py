@@ -1,5 +1,7 @@
 """Guards on dpivae_tpu_torch's boundaries: it imports neither jax nor the
-JAX package, and its entry points do not silently run on the CPU."""
+JAX package, nor what the machine with the card lacks (scikit-learn,
+pandas, pyarrow, orbax, matplotlib), and its entry points do not silently
+run on the CPU."""
 
 import os
 import subprocess
@@ -13,8 +15,10 @@ import torch
 from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.models.vae import DPIVAE
+from dpivae_tpu_torch.scripts import single_run
 from dpivae_tpu_torch.serving import Predictor
 from dpivae_tpu_torch.train import init_params, setup_model, train_model
+from dpivae_tpu_torch.train.checkpoint import load_model, save_model
 from dpivae_tpu_torch.utils.data import sample_response
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,18 +32,19 @@ def test_package_imports_no_jax_and_no_jax_package():
             dpivae_tpu_torch.__path__, "dpivae_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        banned = ("jax", "jaxlib", "dpivae_tpu", "sklearn", "pandas",
+                  "pyarrow", "orbax", "matplotlib")
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                     or m == "dpivae_tpu" or m.startswith("dpivae_tpu."))
+                     if m.split(".")[0] in banned)
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 31 else 0)
+        sys.exit(1 if bad or len(names) < 40 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _entry_points():
+def _entry_points(tmp_path):
     case = get_case("simple_beam")
     cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
         n_train=32, n_batch=16)
@@ -54,6 +59,8 @@ def _entry_points():
     p_data = sample_response(bridge, gen, 32, sample_dist=bridge.gt_dist(),
                              device="cpu")
     p_model = setup_model(p_cfg, bridge, p_data, device="cpu")
+    saved = str(tmp_path / "model")
+    save_model(saved, model, params, cfg, case=case)
     return {
         "sample_response": lambda: sample_response(
             case, gen, 4, sample_dist=case.gt_dist()),
@@ -63,17 +70,21 @@ def _entry_points():
         "Predictor": lambda: Predictor(model, params, cfg),
         "train_model": lambda: train_model(cfg, model, case, data, data),
         "P model init_params": lambda: init_params(p_cfg, p_model),
+        "load_model": lambda: load_model(saved, case),
+        "single_run CLI": lambda: single_run.main(
+            ["--n_iter", "2", "--output", str(tmp_path)]),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "sample_response", "setup_model", "DPIVAE.init", "init_params",
-    "Predictor", "train_model", "P model init_params"])
-def test_entry_point_without_device_needs_cuda(entry):
+    "Predictor", "train_model", "P model init_params", "load_model",
+    "single_run CLI"])
+def test_entry_point_without_device_needs_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        _entry_points()[entry]()
+        _entry_points(tmp_path)[entry]()
 
 
 def test_sample_needs_generator_or_noise():

@@ -209,9 +209,17 @@ def test_init_params_is_seeded_and_torch_default_scaled():
     dict(remat_decode=True),
 ])
 def test_unported_variants_raise(change):
-    _, (_, model, _) = _models(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(model, **change)
+    """bf16 and remat_decode were the last variants to raise; both are
+    ported now (tests/test_torch_port_remat.py holds them against JAX), so
+    they build, and only what no version supports still raises: another
+    compute dtype in the model, and the kernel with bf16 in the config."""
+    _, (cfg, model, _) = _models(False)
+    (field, value), = change.items()
+    assert getattr(dataclasses.replace(model, **change), field) == value
+    with pytest.raises(ValueError, match="compute_dtype"):
+        dataclasses.replace(model, compute_dtype="float16")
+    with pytest.raises(ValueError, match="use_pallas=True"):
+        cfg.replace(use_pallas=True, compute_dtype="bfloat16")
 
 
 @pytest.mark.parametrize("use_pallas, resolved", [
