@@ -78,13 +78,34 @@ Phases; any failure exits non-zero before the result line:
    forward. Then ``disentanglement_metric`` with linear probes and with
    MLP probes (epochs cut from 300 to 30). Each stage's wall time is
    printed.
-9. The decode's options at bench.py's workload, 200 steps each:
-   remat_decode with use_pallas=True (the forward launches 2 n_iter +
-   n_iter / val_freq times, the hidden kernel n_iter; the first 10 train
-   rows agree with a remat_decode=False run from the same seeds and
-   weights), and compute_dtype="bfloat16" with "auto" (no launch; finite
-   log rows).
-10. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+9. The decode's options at bench.py's workload, 200 steps each, each
+   after a warm-up run of 20 steps, so that its steps/s compare with phase
+   6's warm run: remat_decode with use_pallas=True (the forward launches
+   2 n_iter + n_iter / val_freq times, the hidden kernel n_iter; the first
+   10 train rows agree with a remat_decode=False run from the same seeds
+   and weights), and compute_dtype="bfloat16" with "auto" (no launch;
+   finite log rows).
+10. Sweeps (damped_oscillator / "dpivae", 8 -> 128 -> 64, 66 members):
+   the member-batched kernels (one launch over a member axis) against the
+   batched plain version (torch.baddbmm, ReLU, torch.baddbmm) on the same
+   inputs, the forward at 66 x 1,024 and 66 x 32,768 rows, the hidden
+   kernel at 66 x 1,024, and FusedMLPFunction's backward under
+   torch.func.vmap(grad) at 66 x 1,024, each with its bound at the summed
+   rows; then ``train_sweep`` at bench.py's sweep workload (66 members,
+   λ = linspace(-1, 1, 66), patience 10^9), n_iter cut from 2,000 to 500,
+   once with use_pallas "auto" (the plain path in sweeps) and once with
+   use_pallas=True, each after a 20-step warm-up: every chunk's forward
+   launches n_iter + n_iter / val_freq times and its hidden kernel n_iter
+   times, every active row is finite, members differ, the two runs' first
+   10 rows agree, and a member's first 10 rows equal a single train_model
+   run from that member's data, init and generator; member-steps/s of
+   both, and a profile of one batched step. Last, the disentanglement
+   study (``dpivae_tpu_torch.scripts.disentanglement_metric``) in
+   process, 11 λ x 6 runs, n_iter cut from 20,000 to 500, linear probes,
+   output under build/: its score rows and files, then a second call on
+   the same output that resumes every chunk (no training step, no kernel
+   launch) and writes the same scores.
+11. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -102,6 +123,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -118,6 +140,10 @@ N_ITER = 1_000   # cut from the preset's 20,000 for the time limit
 N_ITER_BRIDGE = 500   # cut further for the time limit
 N_ITER_SINGLE_RUN = 1_000   # cut from the preset's 20,000 for the limit
 N_ITER_DECODE_OPTIONS = 200
+N_ITER_WARM = 20   # a warm-up run before each timed options or sweep run
+N_ITER_SWEEP = 500   # bench.py's sweep workload's 2,000, cut for the limit
+N_ITER_STUDY = 500   # the study's 20,000, cut for the limit
+SWEEP_MEMBERS = 66
 PROBE_EPOCHS = 30   # the MLP probes', cut from 300
 LSTSQ_TOL = 1e-3
 N_ROWS_COMPARED = 10
@@ -971,10 +997,19 @@ def _decode_options(ops, failures, card):
     data_val = sample_response(case, gen, base.n_val,
                                sample_dist=case.gt_dist(), device="cuda")
 
-    def train(cfg, params=None):
+    def train(cfg, params=None, warm=False):
+        """A counted run of cfg from the seeds; with ``warm``, after a
+        N_ITER_WARM-step run of the same model, so that the timed run
+        carries no first-step costs (phase 6 times a warm run too)."""
         model = setup_model(cfg, case, data_train, device="cuda")
         if params is None:
             params = init_params(cfg, model, device="cuda")
+        if warm:
+            train_model(cfg.replace(n_iter=N_ITER_WARM), model, case,
+                        data_train, data_val, params=params,
+                        generator=torch.Generator(device="cuda"),
+                        device="cuda")
+            torch.cuda.synchronize()
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
         t0 = time.perf_counter()
@@ -988,7 +1023,7 @@ def _decode_options(ops, failures, card):
     n = base.n_iter
     total = [0, 0]
     remat_cfg = base.replace(use_pallas=True, remat_decode=True)
-    model, params, logs, took, launches = train(remat_cfg)
+    model, params, logs, took, launches = train(remat_cfg, warm=True)
     want = (2 * n + n // base.val_freq, n)
     total = [a + b for a, b in zip(total, launches)]
     _, _, plain_logs, _, _ = train(remat_cfg.replace(remat_decode=False),
@@ -997,7 +1032,8 @@ def _decode_options(ops, failures, card):
     ref = plain_logs.train[:N_ROWS_COMPARED]
     worst = float((got - ref).abs().max())
     print(f"remat_decode, use_pallas=True ({card}): {n} steps in "
-          f"{took:.2f} s ({n / took:.1f} steps/s); launches fused_mlp_fwd "
+          f"{took:.2f} s ({n / took:.1f} steps/s, warm: after a "
+          f"{N_ITER_WARM}-step run); launches fused_mlp_fwd "
           f"{launches[0]}, fused_mlp_hidden {launches[1]} (expected "
           f"{want[0]}, {want[1]}); first {N_ROWS_COMPARED} rows vs "
           f"remat_decode=False max_abs_err {worst:.3e} (rtol {TRAIN_TOL} "
@@ -1011,14 +1047,15 @@ def _decode_options(ops, failures, card):
         failures.append("remat_decode: a log row is not finite")
 
     bf16_cfg = base.replace(use_pallas="auto", compute_dtype="bfloat16")
-    model, _, logs, took, launches = train(bf16_cfg, params)
+    model, _, logs, took, launches = train(bf16_cfg, params, warm=True)
     total = [a + b for a, b in zip(total, launches)]
     finite = bool(torch.isfinite(logs.train).all()
                   and torch.isfinite(logs.val).all())
     _, elbo_val = logs.scalars("ELBO_val")
     print(f"compute_dtype='bfloat16', use_pallas='auto' ({card}): resolved "
           f"to {model.use_pallas}; {n} steps in {took:.2f} s "
-          f"({n / took:.1f} steps/s); launches fused_mlp_fwd {launches[0]}, "
+          f"({n / took:.1f} steps/s, warm); launches fused_mlp_fwd "
+          f"{launches[0]}, "
           f"fused_mlp_hidden {launches[1]} (expected 0, 0); log rows "
           f"{'finite' if finite else 'NOT FINITE'}; ELBO_val "
           f"{elbo_val[0]:.4f} -> {elbo_val[-1]:.4f}")
@@ -1026,6 +1063,332 @@ def _decode_options(ops, failures, card):
         failures.append(f"bf16: launches {launches}, expected none")
     if not finite:
         failures.append("bf16: a log row is not finite")
+    return tuple(total)
+
+
+def _batched_bound_ms(members, rows, d_in, d_hidden, d_out, hidden=False):
+    """The least time of one member-batched launch: every member's x and
+    output, and its own weights, moved once; the operations of all
+    members' rows. For the forward, layer 2 on the TF32 tensor cores in
+    three passes (the kernel's bound, as ``_bound_ms``); for the hidden
+    kernel, f32 on the CUDA cores (as ``_hidden_bound_ms``)."""
+    total = members * rows
+    if hidden:
+        flops = 2 * total * d_hidden * (d_in + 1)
+        n_bytes = 4 * (total * (d_in + d_hidden)
+                       + members * (d_hidden * d_in + d_hidden))
+        t_ops = flops / F32_FLOPS_PER_S
+    else:
+        layer1 = 2 * total * d_in * d_hidden
+        layer2 = 2 * total * d_hidden * d_out
+        n_bytes = 4 * (total * (d_in + d_out) + members * (
+            d_hidden * d_in + d_hidden + d_out * d_hidden + d_out))
+        t_ops = max(3 * layer2 / TF32_FLOPS_PER_S, layer1 / F32_FLOPS_PER_S)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _batched_kernels(ops, failures):
+    """The member-batched kernels against the batched plain version
+    (torch.baddbmm, ReLU, torch.baddbmm: also the batched library pair) on
+    the same inputs, at the sweep's shapes; and FusedMLPFunction's
+    backward under vmap(grad) against vmap(grad) of the plain version.
+    Each batched call must be one launch."""
+    m = SWEEP_MEMBERS
+    results = {}
+    for name, rows in (("training", 1_024), ("validation", 32_768)):
+        f = _randn(SEED + 50)
+        args = (f(m, rows, 8), f(m, 128, 8) * 0.3, f(m, 128) * 0.1,
+                f(m, 64, 128) * 0.3, f(m, 64) * 0.1)
+        with torch.inference_mode():
+            before = ops.fused_mlp.launches
+            got = ops.fused_mlp(*args)
+            one = ops.fused_mlp.launches - before
+            want = ops.fused_mlp_reference(*args)
+            torch.cuda.synchronize()
+            max_abs = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+            ms = _device_ms(lambda: ops.fused_mlp(*args), reps=10)
+            plain_ms = _device_ms(lambda: ops.fused_mlp_reference(*args),
+                                  reps=10)
+        bound_ms, bound_by = _batched_bound_ms(m, rows, 8, 128, 64)
+        print(f"batched kernel {name} {m} members x {rows} rows x "
+              f"(8->128->64), one launch ({one}): max_abs_err "
+              f"{max_abs:.3e} (rtol {RTOL} atol {ATOL}) "
+              f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, batched "
+              f"plain = library pair (baddbmm + ReLU + baddbmm) "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f} % of it reached)")
+        if not ok or one != 1:
+            failures.append(f"the batched forward at {name}: agrees {ok}, "
+                            f"{one} launches for one call")
+        results[f"forward_{name}"] = dict(max_abs_err=max_abs, ms=ms,
+                                          plain_ms=plain_ms,
+                                          bound_ms=bound_ms)
+
+    f = _randn(SEED + 51)
+    args = (f(m, 1_024, 8), f(m, 128, 8) * 0.3, f(m, 128) * 0.1)
+    with torch.inference_mode():
+        before = ops.fused_mlp_hidden.launches
+        got = ops.fused_mlp_hidden(*args)
+        one = ops.fused_mlp_hidden.launches - before
+        want = ops.fused_mlp_hidden_reference(*args)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+        ms = _device_ms(lambda: ops.fused_mlp_hidden(*args), reps=10)
+        plain_ms = _device_ms(
+            lambda: ops.fused_mlp_hidden_reference(*args), reps=10)
+    bound_ms, bound_by = _batched_bound_ms(m, 1_024, 8, 128, 64, hidden=True)
+    print(f"batched hidden kernel training {m} members x 1024 rows x "
+          f"(8->128), one launch ({one}): max_abs_err {max_abs:.3e} "
+          f"{'ok' if ok else 'MISMATCH'}; kernel {ms:.4f} ms, batched plain "
+          f"= library (baddbmm + ReLU) {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})")
+    if not ok or one != 1:
+        failures.append(f"the batched hidden kernel: agrees {ok}, {one} "
+                        f"launches for one call")
+    results["hidden_training"] = dict(max_abs_err=max_abs, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms)
+
+    f = _randn(SEED + 52)
+    args = (f(m, 1_024, 8), f(m, 128, 8) * 0.3, f(m, 128) * 0.1,
+            f(m, 64, 128) * 0.3, f(m, 64) * 0.1)
+    # The cotangent of a loss averaged over the rows, as the training
+    # loss is: unscaled, dW1's sums of 1,024 O(1) terms differ by ~3e-5
+    # between two summation orders, over the absolute tolerance.
+    g = f(m, 1_024, 64) / 1_024
+
+    def grads(mlp):
+        loss = lambda x, w0, b0, w1, b1, g: torch.sum(mlp(x, w0, b0, w1, b1)
+                                                      * g)
+        return torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3, 4)))
+
+    kernel_fn, plain_fn = grads(ops.fused_mlp), grads(ops.fused_mlp_reference)
+    before = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    got = kernel_fn(*args, g)
+    one = (ops.fused_mlp.launches - before[0],
+           ops.fused_mlp_hidden.launches - before[1])
+    want = plain_fn(*args, g)
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    for name, a, b in zip(("dx", "dw0", "db0", "dw1", "db1"), got, want):
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+            failures.append(f"vmap(grad) through FusedMLPFunction: {name} "
+                            f"disagrees with the plain version")
+    if one != (1, 1):
+        failures.append(f"vmap(grad) through FusedMLPFunction launched "
+                        f"{one} (forward, hidden), expected one each")
+    ms = _device_ms(lambda: kernel_fn(*args, g), reps=10, inner=3)
+    plain_ms = _device_ms(lambda: plain_fn(*args, g), reps=10, inner=3)
+    print(f"vmap(grad) through FusedMLPFunction, {m} members x 1024 rows x "
+          f"(8->128->64): launches (forward, hidden) {one}; five gradients "
+          f"max_abs_err {max_abs:.3e} (rtol {GRAD_RTOL} atol {GRAD_ATOL}); "
+          f"forward + backward {ms:.4f} ms, plain under vmap(grad) "
+          f"{plain_ms:.4f} ms")
+    results["vmap_grad"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    return results
+
+
+def _sweep(ops, failures, card):
+    """train_sweep at bench.py's sweep workload, "auto" (plain) and
+    use_pallas=True, each timed after a warm-up. Returns the (forward,
+    hidden) launches of the counted use_pallas=True run."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.sweep import member_datasets, train_sweep
+    from dpivae_tpu_torch.train import setup_model, train_model
+    from dpivae_tpu_torch.train.setup import make_template_model
+    from dpivae_tpu_torch.train.train import member_generators
+
+    case = get_case("damped_oscillator")
+    base = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, patience=10**9, n_iter=N_ITER_SWEEP)
+    lambdas = torch.linspace(-1.0, 1.0, SWEEP_MEMBERS).tolist()
+    runs, times, launches = {}, {}, {}
+    for name, use_pallas in (("auto", "auto"), ("kernel", True)):
+        cfg = base.replace(use_pallas=use_pallas)
+        train_sweep(cfg.replace(n_iter=N_ITER_WARM), case, lambdas,
+                    seed=SEED + 1, device="cuda")
+        torch.cuda.synchronize()
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        runs[name] = train_sweep(cfg, case, lambdas, seed=SEED,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = (ops.fused_mlp.launches,
+                          ops.fused_mlp_hidden.launches)
+    n = N_ITER_SWEEP
+    want = {"auto": (0, 0), "kernel": (n + n // base.val_freq, n)}
+    for name in runs:
+        logs = runs[name].logs
+        rate = SWEEP_MEMBERS * n / times[name]
+        print(f"sweep damped_oscillator / 'dpivae', use_pallas "
+              f"{'auto' if name == 'auto' else True} ({card}): "
+              f"{SWEEP_MEMBERS} members x {n} steps in one chunk in "
+              f"{times[name]:.2f} s (warm): {rate:.1f} member-steps/s; "
+              f"launches fused_mlp_fwd {launches[name][0]}, fused_mlp_hidden "
+              f"{launches[name][1]} (expected {want[name][0]}, "
+              f"{want[name][1]})")
+        if launches[name] != want[name]:
+            failures.append(f"sweep ({name}): launches {launches[name]}, "
+                            f"expected {want[name]}")
+        active = logs.train[logs.train_active]
+        if not (torch.isfinite(active).all()
+                and torch.isfinite(logs.val[logs.val_active]).all()):
+            failures.append(f"sweep ({name}): an active log row is not "
+                            f"finite")
+        if not bool(logs.train_active.all()):
+            failures.append(f"sweep ({name}): a member stopped early")
+    kernel, auto = runs["kernel"].logs.train, runs["auto"].logs.train
+    spread = float((kernel[:, -1, 0] - kernel[0, -1, 0]).abs().max())
+    if not spread > 0:
+        failures.append("sweep: every member ended with the same ELBO")
+    worst = float((kernel[:, :N_ROWS_COMPARED]
+                   - auto[:, :N_ROWS_COMPARED]).abs().max())
+    print(f"sweep: use_pallas=True vs 'auto' first {N_ROWS_COMPARED} rows of "
+          f"all members max_abs_err {worst:.3e} (rtol {TRAIN_TOL} atol "
+          f"{TRAIN_TOL}); final ELBO spread over members {spread:.4f}")
+    if not torch.allclose(kernel[:, :N_ROWS_COMPARED],
+                          auto[:, :N_ROWS_COMPARED], rtol=TRAIN_TOL,
+                          atol=TRAIN_TOL):
+        failures.append("sweep: use_pallas=True and 'auto' disagree")
+
+    # One member as a single run: its data, init and generator.
+    member = SWEEP_MEMBERS // 3
+    cfg = base.replace(use_pallas=True, lambda_g0=lambdas[member],
+                       n_iter=N_ROWS_COMPARED)
+    g = member_generators(SEED, [member], "cuda")[0]
+    data_train, data_val = member_datasets(cfg, case, None, generator=g)
+    params = make_template_model(cfg, case, device="cuda").init(g,
+                                                                device="cuda")
+    model = setup_model(cfg, case, data_train, device="cuda")
+    _, single = train_model(cfg, model, case, data_train, data_val,
+                            params=params, generator=g, device="cuda")
+    got = kernel[member, :N_ROWS_COMPARED]
+    worst = float((got - single.train).abs().max())
+    print(f"sweep member {member} vs a single train_model run of its data, "
+          f"init and generator: first {N_ROWS_COMPARED} rows max_abs_err "
+          f"{worst:.3e} (rtol {TRAIN_TOL} atol {TRAIN_TOL})")
+    if not torch.allclose(got, single.train, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        failures.append("sweep: a member disagrees with its single run")
+    _profile_sweep_step(base.replace(use_pallas=True), case, lambdas)
+    return launches["kernel"], {k: SWEEP_MEMBERS * n / t
+                                for k, t in times.items()}
+
+
+def _profile_sweep_step(cfg, case, lambdas):
+    """torch.profiler's view of one warm member-batched train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpivae_tpu_torch.sweep.sweep import _generators, _keys, \
+        _member_start
+    from dpivae_tpu_torch.train.setup import make_template_model
+    from dpivae_tpu_torch.train.train import MemberTrainer, stack_params
+
+    gens = _generators(_keys(SEED, range(SWEEP_MEMBERS)), "cuda")
+    template = make_template_model(cfg, case, device="cuda")
+    starts = [_member_start(cfg, case, template, g) for g in gens]
+    stack = lambda k: tuple(torch.stack([s[k][c] for s in starts])
+                            for c in range(3))
+    run = MemberTrainer(cfg, case, stack_params([s[2] for s in starts]),
+                        stack(0), stack(1), torch.tensor(lambdas,
+                                                         device="cuda"))
+    for i in range(5):
+        run.step(i, generators=gens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(5, 15):
+        run.step(i, generators=gens)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step(15, generators=gens)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = _device_events(prof)
+    _print_profile(f"one batched train step of {SWEEP_MEMBERS} members",
+                   events, wall_ms, step_ms)
+    for kernel in ("fused_mlp_fwd_kernel", "fused_mlp_hidden_kernel"):
+        _per_launch(events, kernel, f"{SWEEP_MEMBERS} x 1024 rows")
+
+
+def _study(ops, failures, card):
+    """The disentanglement study in process, then its resume. Returns the
+    (forward, hidden) launches of both calls."""
+    import csv
+    import tempfile
+
+    from dpivae_tpu_torch.scripts import disentanglement_metric as study
+    from dpivae_tpu_torch.train import train as train_mod
+
+    steps = [0]
+    step = train_mod.MemberTrainer.step
+
+    def counted(self, *args, **kwargs):
+        steps[0] += 1
+        return step(self, *args, **kwargs)
+
+    train_mod.MemberTrainer.step = counted
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    total = [0, 0]
+    try:
+        with tempfile.TemporaryDirectory(dir=root) as out:
+            argv = ["--case", "damped_oscillator", "--n_iter",
+                    str(N_ITER_STUDY), "--regressor", "linear", "--output",
+                    out, "--device", "cuda"]
+            calls = []
+            for _ in range(2):
+                steps[0] = 0
+                ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+                t0 = time.perf_counter()
+                run = study.main(argv)
+                wall = time.perf_counter() - t0
+                launched = (ops.fused_mlp.launches,
+                            ops.fused_mlp_hidden.launches)
+                total = [a + b for a, b in zip(total, launched)]
+                with open(os.path.join(run.path,
+                                       "disentanglement_score.csv")) as f:
+                    rows = list(csv.reader(f))
+                calls.append((run, rows, steps[0], launched, wall))
+            files = sorted(os.listdir(run.path))
+    finally:
+        train_mod.MemberTrainer.step = step
+    (first, rows, n_steps, launched, wall), second = calls[0], calls[1]
+    n_members = first.result.n_members
+    want_rows = n_members * len(first.case.factors) * 3
+    scores = [float(r[2]) for r in rows[1:]]
+    print(f"study damped_oscillator / 'dpivae' ({card}): {n_members} "
+          f"members (11 λ x 6 runs), {N_ITER_STUDY} steps, linear probes: "
+          f"{len(rows) - 1} score rows (expected {want_rows}: "
+          f"{len(first.case.factors)} factors x 3 blocks per member), "
+          f"{n_steps} batched steps, launches {launched}; {wall:.2f} s; "
+          f"stages " + ", ".join(f"{k} {v:.3f} s"
+                                 for k, v in first.timings.items()))
+    print(f"study files: {files[:6]} ... ({len(files)} entries)")
+    if (tuple(rows[0]) != study.SCORE_COLUMNS or len(rows) - 1 != want_rows
+            or not all(map(math.isfinite, scores)) or first.failures):
+        failures.append("study: score rows missing, mis-headed or not "
+                        "finite")
+    by_block = {}
+    for r in rows[1:]:
+        by_block.setdefault((r[0], r[1]), []).append(float(r[2]))
+    print("study mean R² by (block, factor): " + ", ".join(
+        f"{b}/{f} {sum(v) / len(v):.3f}" for (b, f), v in by_block.items()))
+    run2, rows2, n_steps2, launched2, wall2 = second
+    print(f"study resumed on the same output: {n_steps2} batched steps, "
+          f"launches {launched2}, scores "
+          f"{'identical' if rows2 == rows else 'DIFFERENT'}; {wall2:.2f} s; "
+          f"stages " + ", ".join(f"{k} {v:.3f} s"
+                                 for k, v in run2.timings.items()))
+    if n_steps2 or launched2 != (0, 0) or rows2 != rows:
+        failures.append("study: the resumed call trained or changed scores")
     return tuple(total)
 
 
@@ -1104,16 +1467,29 @@ def main() -> int:
     s_fwd, s_hidden = _single_run(ops, failures, card)
     d_fwd, d_hidden = _decode_options(ops, failures, card)
 
+    # This slice's paths: sweeps and the study on them (damped_oscillator,
+    # 8 -> 128 -> 64, 66 members).
+    batched = _batched_kernels(ops, failures)
+    (w_fwd, w_hidden), member_steps = _sweep(ops, failures, card)
+    print(f"sweep member-steps/s ({card}): use_pallas 'auto' (plain) "
+          f"{member_steps['auto']:.1f}, use_pallas=True (kernels) "
+          f"{member_steps['kernel']:.1f} ({SWEEP_MEMBERS} members x "
+          f"{N_ITER_SWEEP} steps)")
+    y_fwd, y_hidden = _study(ops, failures, card)
+
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
-                 + o_launches + s_fwd + d_fwd)
-    hidden_total = hidden_launches + b_hidden + s_hidden + d_hidden
+                 + o_launches + s_fwd + d_fwd + w_fwd + y_fwd)
+    hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
+                    + w_hidden + y_hidden)
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
           f"{serve_launches} + training {fwd_launches}, bridge serving "
           f"{b_launches} + training {b_fwd}, damped_oscillator serving "
-          f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd} = "
-          f"{fwd_total}; fused_mlp_hidden simple_beam training "
-          f"{hidden_launches} + bridge training {b_hidden} + single run "
-          f"{s_hidden} + remat and bf16 {d_hidden} = {hidden_total}")
+          f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd}, "
+          f"sweep {w_fwd} (member-batched), study {y_fwd} = {fwd_total}; "
+          f"fused_mlp_hidden simple_beam training {hidden_launches} + "
+          f"bridge training {b_hidden} + single run {s_hidden} + remat and "
+          f"bf16 {d_hidden} + sweep {w_hidden} + study {y_hidden} = "
+          f"{hidden_total}")
 
     if failures:
         for f in failures:
@@ -1127,7 +1503,9 @@ def main() -> int:
         "source": source,
         "replaces": "dpivae_tpu/ops/pallas_mlp.py:38",
         "launches": fwd_total,
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in results.values()]
+                           + [batched["forward_training"]["max_abs_err"],
+                              batched["forward_validation"]["max_abs_err"]]),
         "ms": serving["ms"],
         "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"],
@@ -1140,7 +1518,9 @@ def main() -> int:
         "replaces": "dpivae_tpu/ops/pallas_mlp.py:46",
         "launches": hidden_total,
         "max_abs_err": max([r["max_abs_err"] for r in hidden.values()]
-                           + [backward["max_abs_err"]]),
+                           + [backward["max_abs_err"],
+                              batched["hidden_training"]["max_abs_err"],
+                              batched["vmap_grad"]["max_abs_err"]]),
         "ms": train_hidden["ms"],
         "plain_ms": train_hidden["plain_ms"],
         "bound_ms": train_hidden["bound_ms"],

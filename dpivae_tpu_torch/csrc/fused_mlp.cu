@@ -82,6 +82,13 @@
 //   rows and columns masked. Staging C through shared memory for 16-byte
 //   stores was not tried: y is 33.5 MB of the serving shape's 37.8, and the
 //   kernel runs well below the byte bound.
+// - Sweep members (the counterpart of pallas_call's batching rule, which
+//   adds a grid axis under jax.vmap) go on blockIdx.z: one launch covers
+//   every member, each block offsetting its pointers by its member's
+//   strides (MemberStrides; 0 for an array the members share). The bodies
+//   are those of a single call, which is the one-member case. The path is
+//   chosen on the m-tiles of all members together, and the staged path's
+//   persistent grid is divided among the members.
 // - Where the staged weights do not fit one block's shared memory (H over
 //   about 840 at d_in 4, e.g. H = 1,024) or d_in is over 16, every row
 //   count takes the split path, which stages nothing: any width runs.
@@ -104,6 +111,13 @@ constexpr int kThreads = 256;
 
 // The split path's warp w reduces and stores n-tile w.
 static_assert(kSplitWarps >= kNT, "a split block needs a warp per n-tile");
+
+// Elements between one member's array and the next, for a launch over a
+// member axis (blockIdx.z); 0 shares the array across members. A single
+// call is one member with every stride 0.
+struct MemberStrides {
+  int64_t x, w0, b0, w1, b1, out;
+};
 
 // d_in rounded up to the compile-time width the kernels are built for.
 int din_bucket(int d_in) {
@@ -161,8 +175,19 @@ __global__ void __launch_bounds__(kStagedWarps * kWarp)
 fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                      const float* __restrict__ b0, const float* __restrict__ w1,
                      const float* __restrict__ b1, float* __restrict__ out,
-                     int64_t rows, int d_in, int d_hidden, int d_out) {
+                     int64_t rows, int d_in, int d_hidden, int d_out,
+                     MemberStrides ms) {
   static_assert(DINB > 0 || !kStaged, "the staged path takes a d_in bucket");
+  // Member blockIdx.z's arrays; a stride of 0 shares an array across members.
+  {
+    const int64_t m = blockIdx.z;
+    x += m * ms.x;
+    w0 += m * ms.w0;
+    b0 += m * ms.b0;
+    w1 += m * ms.w1;
+    b1 += m * ms.b1;
+    out += m * ms.out;
+  }
   constexpr int kDx = DINB > 0 ? DINB : 1;   // x and W0 rows in registers
   extern __shared__ __align__(16) float smem[];
   const int n_ks = (d_hidden + 7) / 8;
@@ -386,7 +411,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 // bucket (4, 8 or 16, zero-padded), so the FMAs are unrolled with no
 // runtime loop; d_in over 16 takes a runtime-length loop that reads W0
 // from the caches. H over 4 * kThreads takes several passes over the rows,
-// each lane owning the next group of 4 units in each.
+// each lane owning the next group of 4 units in each. Sweep members go on
+// blockIdx.z as in the forward, the row grid divided among them.
 constexpr int kHiddenUnroll = 4;
 constexpr int kHiddenBlocksPerSm = 8;
 
@@ -394,8 +420,16 @@ template <int DINB>
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_hidden_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                         const float* __restrict__ b0, float* __restrict__ h,
-                        int64_t rows, int d_in, int d_hidden, int lanes_per_row) {
+                        int64_t rows, int d_in, int d_hidden, int lanes_per_row,
+                        MemberStrides ms) {
   constexpr int kDx = DINB > 0 ? DINB : 1;   // x and W0 rows in registers
+  {
+    const int64_t m = blockIdx.z;   // the member; ms.out is h's stride
+    x += m * ms.x;
+    w0 += m * ms.w0;
+    b0 += m * ms.b0;
+    h += m * ms.out;
+  }
   const int rows_per_pass = blockDim.x / lanes_per_row;
   const int slot = threadIdx.x / lanes_per_row;
   if (slot >= rows_per_pass) return;
@@ -501,26 +535,29 @@ cudaError_t current_device(DeviceState** state) {
   return cudaSuccess;
 }
 
-// path: -1 chooses by row count and width, 0 takes the split path and 1 the
-// staged path whatever the row count (refused where it cannot run).
+// path: -1 chooses by the m-tiles of all members and the width, 0 takes the
+// split path and 1 the staged path whatever the row count (refused where it
+// cannot run).
 template <int DINB>
 cudaError_t launch_fwd(const float* x, const float* w0, const float* b0,
                        const float* w1, const float* b1, float* out,
                        long long rows, int d_in, int d_hidden, int d_out,
-                       int path, DeviceState& s, cudaStream_t stream) {
+                       int members, const MemberStrides& ms, int path,
+                       DeviceState& s, cudaStream_t stream) {
   const int col_tiles = (d_out + kTileN - 1) / kTileN;
   const long long n_mt = (rows + kTileM - 1) / kTileM;
   const size_t smem = fwd_smem_floats(d_in, d_hidden) * sizeof(float);
   const bool can_stage = DINB > 0 && smem <= (size_t)s.max_smem;
   const bool staged =
-      path < 0 ? can_stage && n_mt * col_tiles > (long long)kSplitTilesPerSm * s.n_sm
+      path < 0 ? can_stage && n_mt * col_tiles * members >
+                                  (long long)kSplitTilesPerSm * s.n_sm
                : path == 1;
   if (!staged) {
     if (n_mt > 0x7fffffffLL) return cudaErrorInvalidValue;
     const size_t red = (size_t)kSplitWarps * kNT * kWarp * sizeof(float4);
-    dim3 grid((unsigned)n_mt, (unsigned)col_tiles);
+    dim3 grid((unsigned)n_mt, (unsigned)col_tiles, (unsigned)members);
     fused_mlp_fwd_kernel<DINB, false><<<grid, kSplitWarps * kWarp, red, stream>>>(
-        x, w0, b0, w1, b1, out, rows, d_in, d_hidden, d_out);
+        x, w0, b0, w1, b1, out, rows, d_in, d_hidden, d_out, ms);
     return cudaGetLastError();
   }
   if (!can_stage) return cudaErrorInvalidValue;
@@ -542,12 +579,16 @@ cudaError_t launch_fwd(const float* x, const float* w0, const float* b0,
       st.per_sm = per_sm < 1 ? 1 : per_sm;
       st.occ_smem = smem;
     }
+    // One wave of resident blocks, shared among column tiles and members
+    // (at least one block each).
     const long long blocks = (n_mt + kStagedWarps - 1) / kStagedWarps;
-    const long long resident =
-        ((long long)s.n_sm * st.per_sm + col_tiles - 1) / col_tiles;
-    dim3 grid((unsigned)(blocks < resident ? blocks : resident), (unsigned)col_tiles);
+    const long long share = (long long)col_tiles * members;
+    long long resident = ((long long)s.n_sm * st.per_sm + share - 1) / share;
+    if (resident < 1) resident = 1;
+    dim3 grid((unsigned)(blocks < resident ? blocks : resident), (unsigned)col_tiles,
+              (unsigned)members);
     fused_mlp_fwd_kernel<DINB, true><<<grid, kStagedWarps * kWarp, smem, stream>>>(
-        x, w0, b0, w1, b1, out, rows, d_in, d_hidden, d_out);
+        x, w0, b0, w1, b1, out, rows, d_in, d_hidden, d_out, ms);
   }
   return cudaGetLastError();
 }
@@ -555,6 +596,7 @@ cudaError_t launch_fwd(const float* x, const float* w0, const float* b0,
 template <int DINB>
 cudaError_t launch_hidden(const float* x, const float* w0, const float* b0,
                           float* h, long long rows, int d_in, int d_hidden,
+                          int members, const MemberStrides& ms,
                           const DeviceState& s, cudaStream_t stream) {
   // Lanes of a row: a power of two up to a warp, whole warps above, at most
   // the block.
@@ -565,12 +607,16 @@ cudaError_t launch_hidden(const float* x, const float* w0, const float* b0,
   if (lanes > kThreads) lanes = kThreads;
   const int rows_per_pass = kThreads / lanes;
   const long long passes = (rows + rows_per_pass - 1) / rows_per_pass;
-  const long long most = (long long)s.n_sm * kHiddenBlocksPerSm;
-  const unsigned grid = (unsigned)(passes < most ? passes : most);
+  long long most = (long long)s.n_sm * kHiddenBlocksPerSm / members;
+  if (most < 1) most = 1;
+  dim3 grid((unsigned)(passes < most ? passes : most), 1, (unsigned)members);
   fused_mlp_hidden_kernel<DINB><<<grid, kThreads, 0, stream>>>(
-      x, w0, b0, h, rows, d_in, d_hidden, lanes);
+      x, w0, b0, h, rows, d_in, d_hidden, lanes, ms);
   return cudaGetLastError();
 }
+
+// The grid's member axis (blockIdx.z) takes at most 65,535 members.
+constexpr int kMaxMembers = 65535;
 
 }  // namespace
 
@@ -594,15 +640,20 @@ const char* fused_mlp_error_string(int err) {
 int fused_mlp_fwd_on_path(const void* x, const void* w0, const void* b0,
                           const void* w1, const void* b1, void* out,
                           long long rows, int d_in, int d_hidden, int d_out,
-                          int path, void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (d_in < 1 || d_hidden < 1 || d_out < 1 ||
+                          int members, long long stride_x, long long stride_w0,
+                          long long stride_b0, long long stride_w1,
+                          long long stride_b1, long long stride_out, int path,
+                          void* stream) {
+  if (rows <= 0 || members <= 0) return cudaSuccess;
+  if (d_in < 1 || d_hidden < 1 || d_out < 1 || members > kMaxMembers ||
       (d_out + kTileN - 1) / kTileN > 65535)
     return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(g_launch_mutex);
   DeviceState* s = nullptr;
   cudaError_t err = current_device(&s);
   if (err != cudaSuccess) return err;
+  const MemberStrides ms{stride_x, stride_w0, stride_b0, stride_w1, stride_b1,
+                         stride_out};
   const auto* xp = static_cast<const float*>(x);
   const auto* w0p = static_cast<const float*>(w0);
   const auto* b0p = static_cast<const float*>(b0);
@@ -612,28 +663,33 @@ int fused_mlp_fwd_on_path(const void* x, const void* w0, const void* b0,
   auto st = static_cast<cudaStream_t>(stream);
   if (d_in <= 4)
     return launch_fwd<4>(xp, w0p, b0p, w1p, b1p, op, rows, d_in, d_hidden,
-                         d_out, path, *s, st);
+                         d_out, members, ms, path, *s, st);
   if (d_in <= 8)
     return launch_fwd<8>(xp, w0p, b0p, w1p, b1p, op, rows, d_in, d_hidden,
-                         d_out, path, *s, st);
+                         d_out, members, ms, path, *s, st);
   if (d_in <= 16)
     return launch_fwd<16>(xp, w0p, b0p, w1p, b1p, op, rows, d_in, d_hidden,
-                          d_out, path, *s, st);
+                          d_out, members, ms, path, *s, st);
   return launch_fwd<0>(xp, w0p, b0p, w1p, b1p, op, rows, d_in, d_hidden, d_out,
-                       path, *s, st);
+                       members, ms, path, *s, st);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for shapes the kernel does not take (d_out over
-// 65,535 column tiles, or over 2^31 - 1 m-tiles of 16 rows on the split
-// path). Pointers are device pointers to contiguous f32 arrays: x (rows,
-// d_in), w0 (d_hidden, d_in), b0 (d_hidden), w1 (d_out, d_hidden), b1
-// (d_out), out (rows, d_out).
+// 65,535 column tiles, more than 65,535 members, or over 2^31 - 1 m-tiles
+// of 16 rows on the split path). Pointers are device pointers to f32
+// arrays, each member's contiguous: x (rows, d_in), w0 (d_hidden, d_in),
+// b0 (d_hidden), w1 (d_out, d_hidden), b1 (d_out), out (rows, d_out);
+// member m's start at m times the array's stride in elements (0: shared).
+// A single call is members = 1.
 int fused_mlp_fwd(const void* x, const void* w0, const void* b0, const void* w1,
                   const void* b1, void* out, long long rows, int d_in,
-                  int d_hidden, int d_out, void* stream) {
+                  int d_hidden, int d_out, int members, long long stride_x,
+                  long long stride_w0, long long stride_b0, long long stride_w1,
+                  long long stride_b1, long long stride_out, void* stream) {
   return fused_mlp_fwd_on_path(x, w0, b0, w1, b1, out, rows, d_in, d_hidden,
-                               d_out, -1, stream);
+                               d_out, members, stride_x, stride_w0, stride_b0,
+                               stride_w1, stride_b1, stride_out, -1, stream);
 }
 
 // Bytes of dynamic shared memory one block of the hidden kernel needs:
@@ -645,29 +701,38 @@ size_t fused_mlp_hidden_smem_bytes(int d_in, int d_hidden) {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for widths under 1. Pointers are device pointers to
-// contiguous f32 arrays: x (rows, d_in), w0 (d_hidden, d_in), b0
-// (d_hidden), h (rows, d_hidden).
+// cudaErrorInvalidValue for widths under 1 or more than 65,535 members.
+// Pointers are device pointers to f32 arrays, each member's contiguous: x
+// (rows, d_in), w0 (d_hidden, d_in), b0 (d_hidden), h (rows, d_hidden);
+// member strides as in fused_mlp_fwd.
 int fused_mlp_hidden(const void* x, const void* w0, const void* b0, void* h,
-                     long long rows, int d_in, int d_hidden, void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (d_in < 1 || d_hidden < 1) return cudaErrorInvalidValue;
+                     long long rows, int d_in, int d_hidden, int members,
+                     long long stride_x, long long stride_w0,
+                     long long stride_b0, long long stride_h, void* stream) {
+  if (rows <= 0 || members <= 0) return cudaSuccess;
+  if (d_in < 1 || d_hidden < 1 || members > kMaxMembers)
+    return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(g_launch_mutex);
   DeviceState* s = nullptr;
   cudaError_t err = current_device(&s);
   if (err != cudaSuccess) return err;
+  const MemberStrides ms{stride_x, stride_w0, stride_b0, 0, 0, stride_h};
   const auto* xp = static_cast<const float*>(x);
   const auto* w0p = static_cast<const float*>(w0);
   const auto* b0p = static_cast<const float*>(b0);
   auto* hp = static_cast<float*>(h);
   auto st = static_cast<cudaStream_t>(stream);
   if (d_in <= 4)
-    return launch_hidden<4>(xp, w0p, b0p, hp, rows, d_in, d_hidden, *s, st);
+    return launch_hidden<4>(xp, w0p, b0p, hp, rows, d_in, d_hidden, members, ms,
+                            *s, st);
   if (d_in <= 8)
-    return launch_hidden<8>(xp, w0p, b0p, hp, rows, d_in, d_hidden, *s, st);
+    return launch_hidden<8>(xp, w0p, b0p, hp, rows, d_in, d_hidden, members, ms,
+                            *s, st);
   if (d_in <= 16)
-    return launch_hidden<16>(xp, w0p, b0p, hp, rows, d_in, d_hidden, *s, st);
-  return launch_hidden<0>(xp, w0p, b0p, hp, rows, d_in, d_hidden, *s, st);
+    return launch_hidden<16>(xp, w0p, b0p, hp, rows, d_in, d_hidden, members,
+                             ms, *s, st);
+  return launch_hidden<0>(xp, w0p, b0p, hp, rows, d_in, d_hidden, members, ms,
+                          *s, st);
 }
 
 }  // extern "C"

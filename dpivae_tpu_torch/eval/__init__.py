@@ -8,6 +8,7 @@ from dpivae_tpu_torch.eval.baselines import (  # noqa: F401
     run_comparison_batched,
 )
 from dpivae_tpu_torch.eval.evaluate import (  # noqa: F401
+    build_eval_sample_fn,
     disentanglement_metric,
     evaluate_model,
     fit_disentanglement_probes,

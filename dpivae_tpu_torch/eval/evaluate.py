@@ -28,10 +28,38 @@ from dpivae_tpu_torch.eval.probes import (  # noqa: F401
     batched_probe_scores,
     make_probe_regressor,
 )
-from dpivae_tpu_torch.models.vae import DPIVAE, DPIVAEParams, Noise
+from dpivae_tpu_torch.models.vae import (
+    DPIVAE,
+    DPIVAEParams,
+    Noise,
+    bind_params,
+)
 from dpivae_tpu_torch.serving import sample_mean
+from dpivae_tpu_torch.train.setup import make_template_model, setup_model
 from dpivae_tpu_torch.utils import DeviceLike, to_numpy
 from dpivae_tpu_torch.utils.metrics import regression_metrics
+
+
+def build_eval_sample_fn(config: TrainConfig, case: Case, cond: bool,
+                         n: int, slots=None, device: DeviceLike = None):
+    """A ``sample_fn(state, data_train, x, c, noise)`` that returns
+    ``model.sample``'s outputs of ``slots`` (default all nine) for one
+    member: its params a ``DPIVAEParams`` state dict, its input scalers
+    fitted on its own ``data_train``, its randomness the ``noise``
+    mapping. Under ``torch.func.vmap`` one such function serves every
+    member of a sweep (counterpart of dpivae_tpu/eval/evaluate.py:24-38,
+    which refits the scalers in the trace the same way). ``device`` (None
+    means CUDA) is where the params' structure is built."""
+    slots = tuple(range(9)) if slots is None else tuple(slots)
+    call = bind_params(make_template_model(config, case, device=device))
+
+    def sample_fn(state, data_train, x, c, noise):
+        model = setup_model(config, case, data_train, device=x.device)
+        out = call(model, "sample", state, x, c, cond=cond, n=n,
+                   grl_alpha=config.lambda_g0, noise=noise, slots=slots)
+        return tuple(out[i] for i in slots)
+
+    return sample_fn
 
 
 def _inputs(params: DPIVAEParams, x, c, generator, noise):

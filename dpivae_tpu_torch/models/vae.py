@@ -113,6 +113,38 @@ class DPIVAEParams(nn.Module):
         self.log_sigma_x = nn.Parameter(log_sigma_x)
 
 
+class _BoundParams(nn.Module):
+    """``DPIVAEParams`` as a submodule, so that ``functional_call`` can put
+    a member's tensors in its place for one method of the static
+    ``DPIVAE``."""
+
+    def __init__(self, params: DPIVAEParams):
+        super().__init__()
+        self.params = params
+
+    def forward(self, model, method, *args, **kwargs):
+        return getattr(model, method)(self.params, *args, **kwargs)
+
+
+def bind_params(model: "DPIVAE"):
+    """A ``call(model, method, state, *args, **kwargs)`` that runs
+    ``getattr(model, method)(params, *args, **kwargs)`` with ``params``
+    holding the tensors of ``state``, a ``DPIVAEParams`` state dict,
+    through ``torch.func.functional_call``. That is how the member-batched
+    paths run this single-member model code on each member's tensors under
+    ``torch.func.vmap``. ``model`` gives the params' structure (an
+    initialized copy on the meta device)."""
+    structure = _BoundParams(
+        model.init(torch.Generator(), device="cpu").to("meta"))
+
+    def call(model, method, state, *args, **kwargs):
+        return functional_call(
+            structure, {f"params.{k}": v for k, v in state.items()},
+            (model, method, *args), kwargs)
+
+    return call
+
+
 @dataclasses.dataclass
 class DPIVAE:
     """Static model configuration: dims, architecture, the fixed z_x prior
@@ -440,7 +472,8 @@ class DPIVAE:
         ``slots``, indices into the 9-tuple, computes only those outputs
         and what they need, with None in the other places: (4,) runs no
         decoder_x. The generator draws the same numbers either way, so
-        each slot computed equals the full sample's bit for bit.
+        each slot computed equals the full sample's bit for bit; a noise
+        mapping needs "x", "c" and "y" only for the slots that read them.
         """
         slots = range(9) if slots is None else slots
         parts = {p for i in slots for p in _SLOT_PARTS.get(i, ())}
@@ -448,12 +481,16 @@ class DPIVAE:
             params, x, c, cond, n, generator=generator, noise=noise)
         xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y = self.decode(
             params, zx_in, zc, zy, grl_alpha=grl_alpha, parts=parts)
-        # The observation noise is drawn for every slot, used or not, so
-        # that the generator's stream does not depend on ``slots``.
+        # The generator draws the observation noise for every slot, used
+        # or not, so that its stream does not depend on ``slots``; a noise
+        # mapping needs only the slots' own.
         lead = (n, *x.shape[:-1])
-        eps_x = _normal(noise, "x", (*lead, self.nd_x), generator, zx)
-        eps_c = _normal(noise, "c", (*lead, self.nd_c), generator, zx)
-        eps_y = _normal(noise, "y", (*lead, self.nd_y), generator, zx)
+        eps = {name: _normal(noise, name, (*lead, width), generator, zx)
+               if noise is None or slot in slots else None
+               for slot, name, width in ((0, "x", self.nd_x),
+                                         (3, "c", self.nd_c),
+                                         (4, "y", self.nd_y))}
+        eps_x, eps_c, eps_y = eps["x"], eps["c"], eps["y"]
         x_sample = c_sample = y_sample = None
         if 0 in slots:
             x_sample = xh_p + xh_d + torch.exp(params.log_sigma_x) * eps_x

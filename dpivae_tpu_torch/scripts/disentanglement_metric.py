@@ -1,0 +1,228 @@
+"""The disentanglement λ-sweep (counterpart of
+scripts/1_disentanglement_metric.py).
+
+    python -m dpivae_tpu_torch.scripts.disentanglement_metric \\
+        --case damped_oscillator [--preset dpivae] [--n_runs 6] \\
+        [--n_iter 20000] [--regressor linear] [--device cpu]
+
+The reference trains 11 λ x 6 seeds = 66 models one after another. Here
+``sweep.train_sweep`` trains them in member-batched chunks on the device
+(all 66 in one when the card's memory holds them), each member's metric
+CSVs are written from its chunk's callback, ``chunks/`` keeps every
+completed chunk so that a rerun into the same output resumes it, the
+members' latents come from ``sweep_disentanglement_latents`` and the
+probes from ``eval.probes.batched_probe_scores``, every probe of every
+member at once on the device (``--regressor linear``: least squares;
+``mlp``: MLP(128, 128)). Writes ``<output>/<name>/``: ``args.json``,
+``<member>/metrics/*.csv``, ``chunks/``, ``disentanglement_score.csv``
+(columns set, gen_factor, score, idx_var, iter, lambda, with λ x 10^4 as
+the JAX script writes it) and ``timings.json`` (seconds per stage).
+
+Not ported: the score-vs-λ figure (the card has no matplotlib; ROADMAP.md,
+queue 1, item 10) and ``--n_devices`` (item 11). ``--probe_workers`` is
+accepted for the JAX script's command lines and has no effect: there is
+no process pool, the probes run batched.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+SCALE_LAMBDA = 1e4
+# λ·10^4 grid of the reference study
+VAR_LIST = np.array(
+    [1e4, 1e3, 1e2, 1e1, 1e0, 0.0, -1e0, -1e1, -1e2, -1e3, -1e4]
+) / SCALE_LAMBDA
+SCORE_COLUMNS = ("set", "gen_factor", "score", "idx_var", "iter", "lambda")
+
+
+class Study(NamedTuple):
+    """What ``main`` returns for in-process use."""
+
+    config: object
+    case: object
+    result: object  # sweep.SweepResult, on the host
+    rows: List[list]  # disentanglement_score.csv's rows
+    failures: List[list]  # [i_lambda, j_run, member, lambda, reason]
+    path: str
+    timings: Dict[str, float]
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--case", default="damped_oscillator")
+    parser.add_argument("--preset", default="dpivae")
+    parser.add_argument("--name", default="disentanglement")
+    parser.add_argument("--n_runs", type=int, default=6)
+    parser.add_argument("--n_iter", type=int, default=None)
+    parser.add_argument("--regressor", default="linear",
+                        choices=["linear", "mlp"],
+                        help="probe: least squares or MLP(128, 128), all "
+                             "probes of all members batched on the device")
+    parser.add_argument("--probe_epochs", type=int, default=300,
+                        help="training epochs of the mlp probe")
+    parser.add_argument("--probe_workers", type=int, default=1,
+                        help="accepted for the JAX script's command lines; "
+                             "no effect (the probes run batched)")
+    parser.add_argument("--n_train_regressor", type=int, default=2048)
+    parser.add_argument("--n_test_regressor", type=int, default=2048)
+    parser.add_argument("--cond", action="store_true")
+    parser.add_argument("--use_mean", action="store_true")
+    parser.add_argument("--seed", type=int, default=123)
+    parser.add_argument("--output", default="output")
+    parser.add_argument("--lambdas", type=float, nargs="*", default=None,
+                        help="override the λ grid (raw values, not x1e4)")
+    parser.add_argument("--n_devices", type=int, default=None,
+                        help="not ported (ROADMAP.md, queue 1, item 11)")
+    parser.add_argument("--latents_chunk", type=int, default=None,
+                        help="members per batched latent extraction "
+                             "(default: sweep.LATENTS_CHUNK_DEFAULT)")
+    parser.add_argument("--device", default=None,
+                        help="torch device; default CUDA (raises without "
+                             "a card: pass cpu to run on the CPU)")
+    return parser
+
+
+def _write_scores(path: str, rows) -> None:
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(SCORE_COLUMNS)
+        writer.writerows(rows)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Study:
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.n_devices:
+        parser.error("--n_devices (members sharded over a device mesh) is "
+                     "not ported to dpivae_tpu_torch yet (ROADMAP.md, queue "
+                     "1, item 11)")
+
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.config import TrainConfig
+    from dpivae_tpu_torch.eval.probes import BLOCKS, batched_probe_scores
+    from dpivae_tpu_torch.sweep import (
+        sweep_disentanglement_latents,
+        train_sweep,
+    )
+    from dpivae_tpu_torch.utils import resolve_device
+    from dpivae_tpu_torch.utils.logging import save_logs_csv
+
+    device = resolve_device(args.device)
+    case = get_case(args.case)
+    if args.preset not in case.presets:
+        parser.error(f"unknown preset {args.preset!r} for case "
+                     f"{args.case!r}; have {sorted(case.presets)}")
+    cfg = TrainConfig().with_preset(case.presets[args.preset]).replace(
+        use_seed=True, seed=args.seed)
+    if args.n_iter is not None:
+        cfg = cfg.replace(n_iter=args.n_iter)
+    lambdas = np.asarray(
+        args.lambdas if args.lambdas is not None else VAR_LIST, np.float32)
+
+    path_output = os.path.join(args.output, args.name)
+    os.makedirs(path_output, exist_ok=True)
+    cfg.save_json(os.path.join(path_output, "args.json"))
+
+    timings: Dict[str, float] = {}
+    t_start = time.perf_counter()
+
+    def mark(phase, t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings[phase] = round(time.perf_counter() - t0, 3)
+        print(f"[phase] {phase}: {timings[phase]:.2f}s", file=sys.stderr,
+              flush=True)
+        return time.perf_counter()
+
+    n_members = len(lambdas) * args.n_runs
+    print(f"Training {n_members} sweep members ({len(lambdas)} λ x "
+          f"{args.n_runs} runs) on {device} ...")
+    # The first device contact (context creation) apart from training.
+    t0 = time.perf_counter()
+    torch.zeros((), device=device).add_(1)
+    t0 = mark("device_init", t0)
+
+    # Each completed chunk's per-member CSVs go to two writer threads while
+    # the next chunk trains.
+    csv_pool = ThreadPoolExecutor(max_workers=2)
+    csv_futures = []
+
+    def on_chunk(start, params_chunk, logs_chunk):
+        for j in range(logs_chunk.train.shape[0]):
+            logs_m = type(logs_chunk)(*(a[j] for a in logs_chunk))
+            csv_futures.append(csv_pool.submit(
+                save_logs_csv, logs_m,
+                os.path.join(path_output, str(start + j), "metrics")))
+
+    try:
+        result = train_sweep(
+            cfg, case, lambdas=lambdas, n_runs=args.n_runs, seed=args.seed,
+            checkpoint_dir=os.path.join(path_output, "chunks"),
+            chunk_callback=on_chunk, device=device)
+        t0 = mark("train", t0)
+        print("Sweep training done; running disentanglement probes ...")
+
+        latents = sweep_disentanglement_latents(
+            cfg, case, result, args.n_train_regressor, args.n_test_regressor,
+            cond=args.cond, use_mean=args.use_mean, seed=args.seed + 1,
+            chunk_size=args.latents_chunk)
+        t0 = mark("latents", t0)
+
+        mlp_kwargs = ({"n_epochs": args.probe_epochs}
+                      if args.regressor == "mlp" else {})
+        scores = batched_probe_scores(
+            {b: latents[f"{b}_train"] for b in BLOCKS},
+            {b: latents[f"{b}_test"] for b in BLOCKS},
+            latents["z_train"], latents["z_test"],
+            n_factors=len(case.factors), regressor=args.regressor,
+            generator=torch.Generator(device=device).manual_seed(
+                args.seed + 2),
+            device=device, **mlp_kwargs)
+        t0 = mark("probes", t0)
+
+        rows, failures = [], []
+        for m in range(result.n_members):
+            i_lambda, j_run = divmod(m, args.n_runs)
+            lam = float(result.lambdas[m])
+            if not np.all(np.isfinite(scores[m])):
+                # A diverged member is recorded, not written as NaN rows.
+                failures.append([i_lambda, j_run, m, lam,
+                                 "non-finite probe scores"])
+                continue
+            for i, factor in enumerate(case.factors):
+                for k, block in enumerate(BLOCKS):
+                    rows.append([block, factor.name, float(scores[m, i, k]),
+                                 i_lambda, j_run, lam * SCALE_LAMBDA])
+        for f in csv_futures:
+            f.result()
+    finally:
+        csv_pool.shutdown()
+    t0 = mark("member_csvs", t0)
+
+    _write_scores(os.path.join(path_output, "disentanglement_score.csv"),
+                  rows)
+    if failures:
+        print(f"{len(failures)} member probes failed: {failures}")
+    timings["total"] = round(time.perf_counter() - t_start, 3)
+    with open(os.path.join(path_output, "timings.json"), "w") as f:
+        json.dump(timings, f, indent=2)
+    print(f"[phase] total: {timings['total']:.2f}s", file=sys.stderr,
+          flush=True)
+    print(f"Wrote {path_output}/disentanglement_score.csv and timings.json")
+    return Study(cfg, case, result, rows, failures, path_output, timings)
+
+
+if __name__ == "__main__":
+    main()

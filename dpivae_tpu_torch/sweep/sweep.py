@@ -1,0 +1,799 @@
+"""Member-batched sweep training (counterpart of dpivae_tpu/sweep/sweep.py).
+
+``train_sweep`` turns N independent trainings (the reference's serial
+loops over λ and seeds) into batched trainings of ``chunk_size`` members
+at a time:
+
+- each member has its own ``torch.Generator``, seeded from the sweep seed
+  and the member's id (``train.train.member_generators``): it draws the
+  member's datasets, its init and every step's batch rows and noise, so a
+  member's result depends neither on the chunk size nor on its chunk's
+  other members;
+- λ (the GRL strength) and, in ``train_hyper_sweep``, any of
+  ``TRACEABLE_HYPER_FIELDS`` are per-member values;
+- members stack on a leading axis; ``train.train.MemberTrainer`` runs the
+  single-member model code under ``torch.func.vmap`` and the fused-MLP
+  kernels launch once per call for all members.
+
+A member's identity (``SweepResult.keys``) is its (seed, id) pair: the
+JAX package's per-member PRNG key. Chunks persist under ``checkpoint_dir``
+named by a digest of the sweep's identity, as in the JAX package
+(``_sweep_manifest``), so a rerun resumes completed chunks and never
+another sweep's.
+
+Not ported: the device mesh (``mesh=`` raises; ROADMAP.md, queue 1,
+item 11) and ``export_member_predictor`` (the serving artifact, item 10).
+The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
+caches only warm or cache compiled programs; eager PyTorch compiles
+nothing, so they have no counterpart.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import sys
+import time
+from typing import Callable, NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from dpivae_tpu_torch.cases import Case
+from dpivae_tpu_torch.config import TrainConfig
+from dpivae_tpu_torch.eval.evaluate import build_eval_sample_fn
+from dpivae_tpu_torch.models.decoders import DECODER_X_HIDDEN
+from dpivae_tpu_torch.train.checkpoint import save_model
+from dpivae_tpu_torch.train.setup import make_template_model, setup_model
+from dpivae_tpu_torch.train.train import (
+    TRACEABLE_HYPER_FIELDS,
+    TrainLogs,
+    build_member_train_fn,
+    encoder_noise,
+    member_config,
+    member_generators,
+    stack_params,
+)
+from dpivae_tpu_torch.utils import DeviceLike, randn, resolve_device
+from dpivae_tpu_torch.utils.data import sample_response
+
+# Members per batched latent-extraction (and prediction) call, shared by
+# sweep_disentanglement_latents and the study script, as in the JAX
+# package.
+LATENTS_CHUNK_DEFAULT = 22
+
+
+def _mesh_not_ported(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (members sharded over devices) is not ported to "
+            "dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 11)")
+
+
+class SweepResult(NamedTuple):
+    """Stacked results; leading axis = sweep member.
+
+    params: state dict of (M, ...) tensors; logs: ``TrainLogs`` with a
+    leading member axis; lambdas: (M,) float32; keys: (M, 2) int64, each
+    member's (seed, id), which seed its generator; device: the device the
+    members trained on, whose generators replay their draws.
+    """
+
+    params: dict
+    logs: TrainLogs
+    lambdas: np.ndarray
+    keys: np.ndarray
+    device: str
+
+    @property
+    def n_members(self) -> int:
+        return int(self.lambdas.shape[0])
+
+    def member_params(self, i: int) -> dict:
+        """Member ``i``'s params as a ``DPIVAEParams`` state dict."""
+        return {k: v[i] for k, v in self.params.items()}
+
+    def member_logs(self, i: int) -> TrainLogs:
+        return TrainLogs(*(a[i] for a in self.logs))
+
+    def host(self) -> "SweepResult":
+        """Every tensor copied to the CPU, one transfer per tensor, for
+        per-member host work (CSV writes, row loops)."""
+        cpu = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a
+        return self._replace(
+            params={k: cpu(v) for k, v in self.params.items()},
+            logs=TrainLogs(*(cpu(a) for a in self.logs)))
+
+
+class HyperSweepResult(NamedTuple):
+    """Stacked hyperparameter-sweep results; leading axis = member.
+
+    ``grid`` maps each swept config field to its (M,) values."""
+
+    params: dict
+    logs: TrainLogs
+    grid: dict
+    lambdas: np.ndarray
+    keys: np.ndarray
+    device: str
+
+    n_members = SweepResult.n_members
+    member_params = SweepResult.member_params
+    member_logs = SweepResult.member_logs
+    host = SweepResult.host
+
+    def member_overrides(self, i: int) -> dict:
+        return {k: float(v[i]) for k, v in self.grid.items()}
+
+
+def _keys(seed: int, ids) -> np.ndarray:
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    return np.stack([np.full_like(ids, int(seed)), ids], axis=1)
+
+
+def _generators(keys: np.ndarray, device) -> list:
+    return [member_generators(int(s), [int(i)], device)[0] for s, i in keys]
+
+
+def member_datasets(config: TrainConfig, case: Case, member_key,
+                    device: DeviceLike = None, generator=None):
+    """Replay a sweep member's (train, val) datasets from its key, the
+    (seed, id) pair in ``SweepResult.keys``, on ``device`` (the device it
+    trained on: generators differ between devices). With ``generator``
+    (the member's, fresh) the draws come from it, which leaves it where
+    the member's init starts."""
+    if generator is None:
+        seed, i = (int(v) for v in np.asarray(member_key).reshape(2))
+        generator = member_generators(seed, [i], device)[0]
+    device = generator.device
+    gt = case.gt_dist()
+    data_train = sample_response(case, generator, config.n_train,
+                                 sample_dist=gt, device=device)
+    data_val = sample_response(case, generator, config.n_val,
+                               sample_dist=gt, device=device)
+    return data_train, data_val
+
+
+def _member_start(config, case, template, generator, data=None):
+    """A member's (data_train, data_val, params) from its generator: the
+    datasets (unless given), then the init, as ``build_member_fn`` splits
+    its key; the generator is left at the member's training draws."""
+    if data is None:
+        data = member_datasets(config, case, None, generator=generator)
+    params = template.init(generator, device=generator.device)
+    return data[0], data[1], params
+
+
+def member_model(config: TrainConfig, case: Case, result, i: int,
+                 data_train=None):
+    """(model, params) of sweep member ``i``: the model with its input
+    scalers fitted on the member's training data (replayed from its key on
+    ``result.device``, or ``data_train`` for a data sweep) and a
+    ``DPIVAEParams`` holding its params, on ``result.device``."""
+    config = member_config(config)
+    device = torch.device(result.device)
+    if data_train is None:
+        data_train, _ = member_datasets(config, case, result.keys[i], device)
+    model = setup_model(config, case, data_train, device=device)
+    params = model.init(torch.Generator(), device=device)
+    params.load_state_dict(result.member_params(i))
+    return model, params
+
+
+def export_member(config: TrainConfig, case: Case, result, i: int,
+                  path: str, data_train=None):
+    """Save sweep member ``i`` as a servable checkpoint
+    (``train.checkpoint.save_model``) with its λ and index in the meta
+    sidecar; restore it with ``load_model(path, case)``. Returns the
+    (model, params) saved."""
+    model, params = member_model(config, case, result, i, data_train)
+    save_model(path, model, params, member_config(config), case=case,
+               extra_meta={"sweep_member": int(i),
+                           "lambda": float(result.lambdas[i])})
+    return model, params
+
+
+def export_member_predictor(*args, **kwargs):
+    """Not ported: the serving artifact (ROADMAP.md, queue 1, item 10)."""
+    raise NotImplementedError(
+        "export_member_predictor (the serving artifact) is not ported to "
+        "dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 10); export_member "
+        "writes a checkpoint that load_model restores")
+
+
+# ----------------------------------------------------------------------
+# Chunk sizes
+# ----------------------------------------------------------------------
+
+# Share of the free device memory one chunk may plan for.
+_MEMORY_SHARE = 0.5
+
+
+def member_bytes(config: TrainConfig, case: Case) -> int:
+    """Bytes one member needs at its peak, reckoned from the shapes: the
+    larger of the validation pass (n_val x n_mc_val rows, no graph) and
+    the training step (n_batch x n_mc_train rows, its activations kept
+    for the backward, counted three times), each row holding the decoder
+    outputs and hidden layers and the latents; plus params, gradients,
+    both Adam moments and two saved states for the early stop."""
+    hidden = int(config.hidden_width or DECODER_X_HIDDEN)
+    nz = case.nz_x + config.nz_c + config.nz_y
+    per_row = 4 * (4 * case.nd_x + 3 * hidden + 8 * nz + case.nd_c
+                   + case.nd_y + 16)
+    val = config.n_val * config.n_mc_val * per_row
+    train = 3 * config.n_batch * config.n_mc_train * per_row
+    data = 4 * (config.n_train + config.n_val) * (
+        case.nd_x + case.nd_c + case.nd_y)
+    n_params = 100_000 + 4 * hidden * (case.nd_x + nz + hidden)
+    return int(max(val, train) + data + 4 * 10 * n_params)
+
+
+def _free_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return int(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+
+
+def auto_chunk_size(n_members: int, config: TrainConfig, case: Case,
+                    device: DeviceLike = None) -> int:
+    """Members per batched training: as many as half the device's free
+    memory holds at ``member_bytes`` each, at most all of them. One chunk
+    is the fastest: a step's host cost is nearly the same for any member
+    count, so fewer chunks means fewer steps. (The JAX package's rule is
+    calibrated to a TPU transport deadline that does not exist here.)"""
+    if n_members <= 0:
+        return 1
+    device = resolve_device(device)
+    fits = int(_MEMORY_SHARE * _free_bytes(device)
+               // member_bytes(config, case))
+    return max(1, min(n_members, fits))
+
+
+# ----------------------------------------------------------------------
+# Checkpointed, chunked execution
+# ----------------------------------------------------------------------
+
+_DIGEST_CHUNK_RE = re.compile(r"^chunk_([0-9a-f]{12})_\d{6}\.npz$")
+
+
+def _progress(msg: str) -> None:
+    """One narrator line on stderr (stdout stays for results)."""
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _sweep_manifest(config: TrainConfig, case: Case, arrays, n_members: int,
+                    chunk_size: int, flavor="") -> dict:
+    """Identity of a checkpointed sweep: everything that determines its
+    members' results. It covers the resolved config (so ``use_pallas``
+    resolved, never "auto"), the case, the member-identity columns
+    (keys, λs, hyper columns, datasets), the chunk size and ``flavor``
+    (the sweep kind and swept field names). The digest prefixes every
+    chunk filename, so a sweep can only resume chunks an identical sweep
+    wrote."""
+    h = hashlib.sha256()
+    h.update(repr(flavor).encode())
+    h.update(member_config(config).to_json().encode())
+    h.update(case.name.encode())
+    h.update(case.fingerprint().encode())
+    h.update(f"chunk_size={int(chunk_size)}".encode())
+    for a in arrays:
+        a = np.ascontiguousarray(np.asarray(a)[:n_members])
+        h.update(str((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    return {"digest": h.hexdigest(), "n_members": int(n_members)}
+
+
+def _read_manifest(checkpoint_dir: str) -> dict:
+    try:
+        with open(os.path.join(checkpoint_dir, "manifest.json")) as f:
+            data = json.load(f)
+        if isinstance(data, dict):
+            return data
+    except (OSError, ValueError):
+        pass
+    return {}
+
+
+def _manifest_history(prev: dict) -> dict:
+    """Digest registry {digest12: {"ts", "n_members"}} of a manifest."""
+    history = prev.get("history")
+    history = dict(history) if isinstance(history, dict) else {}
+    old = prev.get("digest")
+    if isinstance(old, str) and len(old) >= 12 and old[:12] not in history:
+        history[old[:12]] = {"ts": None, "n_members": prev.get("n_members")}
+    return history
+
+
+def clean_checkpoint_dir(checkpoint_dir: str, keep=None):
+    """Delete stale sweep chunk checkpoints from a shared dir: chunk files
+    whose digest is not in ``keep`` (default: every digest the dir's
+    manifest registry records). Other files are never touched. The
+    registry is pruned to match. Returns the deleted filenames."""
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    prev = _read_manifest(checkpoint_dir)
+    history = _manifest_history(prev)
+    kept = set(history) if keep is None else {str(k)[:12] for k in keep}
+    deleted = []
+    for f in sorted(os.listdir(checkpoint_dir)):
+        m = _DIGEST_CHUNK_RE.match(f)
+        if m is None or m.group(1) in kept:
+            continue
+        os.remove(os.path.join(checkpoint_dir, f))
+        deleted.append(f)
+    pruned = {d: meta for d, meta in history.items() if d in kept}
+    if prev or pruned:
+        prev["history"] = pruned
+        top = prev.get("digest")
+        if isinstance(top, str) and top[:12] not in kept:
+            prev.pop("digest", None)
+        with open(os.path.join(checkpoint_dir, "manifest.json"), "w") as f:
+            json.dump(prev, f)
+    if deleted:
+        _progress(f"[sweep] checkpoint GC removed {len(deleted)} stale "
+                  f"chunk file(s) from {checkpoint_dir}")
+    return deleted
+
+
+def _write_sweep_manifest(checkpoint_dir: str, manifest: dict) -> str:
+    """Record this sweep in manifest.json (latest identity plus the
+    ``history`` registry) and return the digest prefix of its chunk
+    filenames, ``chunk_<digest12>_<start>.npz``."""
+    digest12 = manifest["digest"][:12]
+    foreign = [f for f in os.listdir(checkpoint_dir)
+               if f.startswith("chunk_") and f.endswith(".npz")
+               and not f.startswith(f"chunk_{digest12}_")]
+    if foreign:
+        _progress(f"[sweep] checkpoint dir holds {len(foreign)} chunk "
+                  "file(s) of other sweep identities: ignored, not resumed")
+    history = _manifest_history(_read_manifest(checkpoint_dir))
+    history[digest12] = {"ts": time.time(),
+                         "n_members": manifest["n_members"]}
+    with open(os.path.join(checkpoint_dir, "manifest.json"), "w") as f:
+        json.dump({**manifest, "history": history}, f)
+    return digest12
+
+
+def _save_chunk(path: str, params: dict, logs: TrainLogs) -> None:
+    """Persist one chunk's (params, logs), CPU tensors, as npz."""
+    payload = {f"p:{k}": v.numpy() for k, v in params.items()}
+    payload.update({f"log:{name}": getattr(logs, name).numpy()
+                    for name in TrainLogs._fields})
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+
+
+def _load_chunk(path: str, expect_members: int):
+    """A saved chunk as CPU tensors, or None if it does not hold
+    ``expect_members`` members."""
+    with np.load(path) as data:
+        params = {k[2:]: torch.from_numpy(data[k]) for k in data.files
+                  if k.startswith("p:")}
+        logs = TrainLogs(*(torch.from_numpy(data[f"log:{name}"])
+                           for name in TrainLogs._fields))
+    if logs.train.shape[0] != expect_members:
+        return None
+    return params, logs
+
+
+def _chunked_execute(run_chunk: Callable, n_members: int, chunk_size: int,
+                     checkpoint_dir: Optional[str] = None,
+                     chunk_callback=None, manifest: Optional[dict] = None,
+                     label: str = "sweep", gc_stale_chunks: bool = False):
+    """Run ``run_chunk(slice) -> (params, logs)`` over the members in
+    chunks of ``chunk_size`` and concatenate the results on the member
+    axis (counterpart of the JAX package's ``_chunked_execute``).
+
+    With ``checkpoint_dir`` every completed chunk persists as npz named by
+    the ``manifest`` digest and its start, and a rerun resumes it (trains
+    nothing for it). With ``chunk_callback(start, params_chunk,
+    logs_chunk)`` each completed chunk, fresh or resumed, reaches the
+    caller as CPU tensors. Chunks stay on their device unless one of the
+    two needs them on the host."""
+    if gc_stale_chunks and checkpoint_dir is None:
+        raise ValueError("gc_stale_chunks requires checkpoint_dir")
+    hosted = checkpoint_dir is not None or chunk_callback is not None
+    digest12 = None
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        digest12 = _write_sweep_manifest(checkpoint_dir, manifest)
+        if gc_stale_chunks:
+            clean_checkpoint_dir(checkpoint_dir)
+    starts = range(0, n_members, chunk_size)
+    chunks, t0 = [], time.perf_counter()
+    for i, start in enumerate(starts):
+        sl = slice(start, min(start + chunk_size, n_members))
+        n_in = sl.stop - sl.start
+        path = (None if checkpoint_dir is None
+                else os.path.join(checkpoint_dir,
+                                  f"chunk_{digest12}_{start:06d}.npz"))
+        out = None
+        if path is not None and os.path.exists(path):
+            out = _load_chunk(path, n_in)
+            if out is None:
+                _progress(f"{label} checkpoint {path} holds another member "
+                          "count; recomputing this chunk")
+            elif len(starts) > 1:
+                _progress(f"[{label}] chunk {i + 1}/{len(starts)} resumed "
+                          "from checkpoint")
+        if out is None:
+            params, logs = run_chunk(sl)
+            if hosted:
+                params = {k: v.cpu() for k, v in params.items()}
+                logs = TrainLogs(*(a.cpu() for a in logs))
+                if path is not None:
+                    _save_chunk(path, params, logs)
+            out = (params, logs)
+            if len(starts) > 1:
+                _progress(f"[{label}] chunk {i + 1}/{len(starts)} done "
+                          f"({sl.stop}/{n_members} members, "
+                          f"{time.perf_counter() - t0:.1f}s)")
+        if chunk_callback is not None:
+            chunk_callback(start, *out)
+        chunks.append(out)
+    params = {k: torch.cat([c[0][k] for c in chunks])
+              for k in chunks[0][0]}
+    logs = TrainLogs(*(torch.cat([c[1][j] for c in chunks])
+                       for j in range(len(TrainLogs._fields))))
+    return params, logs
+
+
+def _run_members(config: TrainConfig, case: Case, lambdas: np.ndarray,
+                 keys: np.ndarray, device: torch.device, hyper=None,
+                 data=None):
+    """The chunk runner: each member of a slice starts from its generator
+    (data unless given, init), then all train at once."""
+    template = make_template_model(config, case, device=device)
+    train_fn = build_member_train_fn(config, case)
+
+    def run(sl):
+        gens = _generators(keys[sl], device)
+        starts = []
+        for j, g in enumerate(gens):
+            given = None
+            if data is not None:
+                given = tuple(tuple(a[sl.start + j] for a in d[:3])
+                              for d in data)
+            starts.append(_member_start(config, case, template, g, given))
+        stack = lambda k: tuple(torch.stack([torch.as_tensor(
+            s[k][c], dtype=torch.float32, device=device) for s in starts])
+            for c in range(3))
+        lam = torch.as_tensor(lambdas[sl], device=device)
+        hyp = ({f: torch.as_tensor(v[sl], device=device)
+                for f, v in hyper.items()} if hyper else None)
+        return train_fn(stack_params([s[2] for s in starts]), gens,
+                        stack(0), stack(1), lam, hyp)
+
+    return run
+
+
+def _chunk(chunk_size, n_members, config, case, device) -> int:
+    if chunk_size == "auto":
+        chunk_size = auto_chunk_size(n_members, config, case, device)
+    return max(1, min(int(chunk_size or n_members), n_members))
+
+
+def train_sweep(
+    config: TrainConfig,
+    case: Case,
+    lambdas: Sequence[float],
+    n_runs: int = 1,
+    seed: Optional[int] = None,
+    mesh=None,
+    chunk_size: Union[int, str, None] = "auto",
+    checkpoint_dir: Optional[str] = None,
+    chunk_callback=None,
+    gc_stale_chunks: bool = False,
+    device: DeviceLike = None,
+) -> SweepResult:
+    """Train the (λ × run) grid in member-batched chunks on ``device``
+    (None means CUDA).
+
+    Args:
+        lambdas: GRL strengths; the grid is their cross product with
+            ``n_runs`` seeds (the reference study: 11 λ x 6 runs).
+        seed: the sweep seed (default ``config.seed``); member m's
+            generator is seeded from (seed, m).
+        chunk_size: members per batched training; "auto"
+            (``auto_chunk_size``) or None for all at once.
+        checkpoint_dir: if set, every completed chunk is saved and a rerun
+            of the identical sweep resumes it; chunks of other sweeps
+            sharing the dir are never resumed (``_sweep_manifest``).
+        chunk_callback: ``callback(member_start, params_chunk,
+            logs_chunk)`` with CPU tensors for every completed chunk.
+        gc_stale_chunks: with ``checkpoint_dir``, delete chunk files no
+            registered sweep owns (``clean_checkpoint_dir``).
+
+    Returns:
+        SweepResult ordered λ-major (member = i_lambda * n_runs + i_run).
+    """
+    _mesh_not_ported(mesh)
+    if gc_stale_chunks and checkpoint_dir is None:
+        raise ValueError("gc_stale_chunks requires checkpoint_dir")
+    device = resolve_device(device)
+    config = member_config(config)
+    seed = config.seed if seed is None else int(seed)
+    lam = np.repeat(np.asarray(lambdas, np.float32).reshape(-1), n_runs)
+    n_members = lam.shape[0]
+    keys = _keys(seed, np.arange(n_members))
+    chunk_size = _chunk(chunk_size, n_members, config, case, device)
+    params, logs = _chunked_execute(
+        _run_members(config, case, lam, keys, device), n_members, chunk_size,
+        checkpoint_dir, chunk_callback,
+        manifest=(_sweep_manifest(config, case, (keys, lam), n_members,
+                                  chunk_size, flavor=("lambda-sweep",
+                                                      device.type))
+                  if checkpoint_dir is not None else None),
+        label="sweep", gc_stale_chunks=gc_stale_chunks)
+    return SweepResult(params, logs, lam, keys, str(device))
+
+
+def train_hyper_sweep(
+    config: TrainConfig,
+    case: Case,
+    grid: dict,
+    n_runs: int = 1,
+    lambdas=None,
+    seed: Optional[int] = None,
+    chunk_size: Union[int, str, None] = "auto",
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    chunk_callback=None,
+    gc_stale_chunks: bool = False,
+    device: DeviceLike = None,
+) -> HyperSweepResult:
+    """Train a hyperparameter grid in member-batched chunks: any subset of
+    ``TRACEABLE_HYPER_FIELDS`` (per-group learning rates and weight
+    decays, the clip norm, the β/α loss weights) varies per member.
+
+    Args:
+        grid: field name -> per-row values, all of one length (members are
+            rows; the cross product is the caller's).
+        n_runs: seeds per row (member = i_row * n_runs + i_run). The same
+            n_runs member seeds repeat across rows, so each seed's data and
+            init are paired across settings.
+        lambdas: optional per-row GRL strengths (default
+            ``config.lambda_g0``).
+        seed, chunk_size, checkpoint_dir, chunk_callback, gc_stale_chunks,
+            device: as in ``train_sweep`` (the digest covers the grid).
+    """
+    _mesh_not_ported(mesh)
+    if gc_stale_chunks and checkpoint_dir is None:
+        raise ValueError("gc_stale_chunks requires checkpoint_dir")
+    fields = tuple(sorted(grid))
+    if not fields:
+        raise ValueError("grid must contain at least one field")
+    bad = set(fields) - TRACEABLE_HYPER_FIELDS
+    if bad:
+        raise ValueError(f"{sorted(bad)} cannot be swept per member; "
+                         f"allowed: {sorted(TRACEABLE_HYPER_FIELDS)}")
+    cols = [np.asarray(grid[f], np.float32).reshape(-1) for f in fields]
+    n_rows = cols[0].shape[0]
+    for f, c in zip(fields, cols):
+        if c.shape[0] != n_rows:
+            raise ValueError(f"grid column {f!r} has {c.shape[0]} values, "
+                             f"expected {n_rows}")
+    if lambdas is None:
+        lam_rows = np.full(n_rows, config.lambda_g0, np.float32)
+    else:
+        lam_rows = np.asarray(lambdas, np.float32).reshape(-1)
+        if lam_rows.shape[0] != n_rows:
+            raise ValueError("lambdas must match the grid length")
+    rep = lambda a: np.repeat(a, n_runs, axis=0)
+    grid_out = {f: rep(c) for f, c in zip(fields, cols)}
+    lam = rep(lam_rows)
+    n_members = n_rows * n_runs
+    device = resolve_device(device)
+    config = member_config(config)
+    seed = config.seed if seed is None else int(seed)
+    keys = _keys(seed, np.tile(np.arange(n_runs), n_rows))
+    chunk_size = _chunk(chunk_size, n_members, config, case, device)
+    params, logs = _chunked_execute(
+        _run_members(config, case, lam, keys, device, hyper=grid_out),
+        n_members, chunk_size, checkpoint_dir, chunk_callback,
+        manifest=(_sweep_manifest(
+            config, case, (keys, lam, *grid_out.values()), n_members,
+            chunk_size, flavor=("hyper-sweep", fields, device.type))
+            if checkpoint_dir is not None else None),
+        label="hyper-sweep", gc_stale_chunks=gc_stale_chunks)
+    return HyperSweepResult(params, logs, grid_out, lam, keys, str(device))
+
+
+def train_sweep_data(
+    config: TrainConfig,
+    case: Case,
+    lambdas,
+    data_train,
+    data_val,
+    seed: Optional[int] = None,
+    mesh=None,
+    chunk_size: Union[int, str, None] = "auto",
+    checkpoint_dir: Optional[str] = None,
+    chunk_callback=None,
+    gc_stale_chunks: bool = False,
+    device: DeviceLike = None,
+) -> SweepResult:
+    """Sweep over given per-member datasets: ``data_train``/``data_val``
+    are (x, c, y) whose arrays carry a leading member axis (e.g. the
+    domain-transfer grid of the regression study). Each member's
+    generator, from (seed, m), draws its init and training noise;
+    chunking and checkpoints as in ``train_sweep`` (the digest covers the
+    datasets)."""
+    _mesh_not_ported(mesh)
+    if gc_stale_chunks and checkpoint_dir is None:
+        raise ValueError("gc_stale_chunks requires checkpoint_dir")
+    lam = np.asarray(lambdas, np.float32).reshape(-1)
+    n_members = lam.shape[0]
+    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                       else np.asarray(a, np.float32))
+    data_train = tuple(as_np(a) for a in data_train[:3])
+    data_val = tuple(as_np(a) for a in data_val[:3])
+    for a in (*data_train, *data_val):
+        if a.shape[0] != n_members:
+            raise ValueError("data member axis must match len(lambdas)")
+    device = resolve_device(device)
+    config = member_config(config)
+    seed = config.seed if seed is None else int(seed)
+    keys = _keys(seed, np.arange(n_members))
+    chunk_size = _chunk(chunk_size, n_members, config, case, device)
+    params, logs = _chunked_execute(
+        _run_members(config, case, lam, keys, device,
+                     data=(data_train, data_val)),
+        n_members, chunk_size, checkpoint_dir, chunk_callback,
+        manifest=(_sweep_manifest(
+            config, case, (keys, lam, *data_train, *data_val), n_members,
+            chunk_size, flavor=("data-sweep", device.type))
+            if checkpoint_dir is not None else None),
+        label="data-sweep", gc_stale_chunks=gc_stale_chunks)
+    return SweepResult(params, logs, lam, keys, str(device))
+
+
+# ----------------------------------------------------------------------
+# Batched evaluation of a sweep's members
+# ----------------------------------------------------------------------
+
+def _observation_noise(template, generator, n: int, batch: int, cond: bool,
+                       slots, device) -> dict:
+    """One member's standard normals for ``DPIVAE.sample`` of ``slots``:
+    the encoder's, the conditional prior's with ``cond``, and the
+    observation noise only of the slots that read it, in the order
+    ``sample`` draws them."""
+    noise = {"z": encoder_noise(template, generator, n, batch, device)}
+    if cond:
+        noise["z_prior"] = randn((n, batch, template.nz_c), generator, device)
+    for slot, name, width in ((0, "x", template.nd_x),
+                              (3, "c", template.nd_c),
+                              (4, "y", template.nd_y)):
+        if slot in slots:
+            noise[name] = randn((n, batch, width), generator, device)
+    return noise
+
+
+def _stack_noise(noises) -> dict:
+    return {k: torch.stack([d[k] for d in noises]) for k in noises[0]}
+
+
+def _member_slices(n_members: int, chunk_size: Optional[int]):
+    size = max(1, min(chunk_size or LATENTS_CHUNK_DEFAULT, n_members))
+    return [slice(s, min(s + size, n_members))
+            for s in range(0, n_members, size)]
+
+
+def _sample_members(config, case, result, data_train, x, c, *, cond, n,
+                    slots, seed, noise, chunk_size):
+    """``DPIVAE.sample`` of ``slots`` for every member (stacked, leading
+    member axis), in chunks of members under ``torch.func.vmap`` on the
+    device the members trained on: each member's scalers fitted on its
+    ``data_train``, its noise from ``noise`` (stacked mappings) or drawn
+    from its own generator, seeded from (seed, member), outside vmap."""
+    config = member_config(config)
+    device = torch.device(result.device)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    data_train = tuple(as_t(a) for a in data_train[:3])
+    x, c = as_t(x), as_t(c)
+    template = make_template_model(config, case, device=device)
+    sample_fn = torch.func.vmap(build_eval_sample_fn(
+        config, case, cond, n, slots=slots, device=device))
+    gens = (member_generators(seed, range(result.n_members), device)
+            if noise is None else None)
+    outs = []
+    for sl in _member_slices(result.n_members, chunk_size):
+        if noise is None:
+            eps = _stack_noise([_observation_noise(
+                template, g, n, x.shape[1], cond, slots, device)
+                for g in gens[sl]])
+        else:
+            eps = {k: as_t(v[sl]) for k, v in noise.items()}
+        state = {k: v[sl].to(device) for k, v in result.params.items()}
+        with torch.no_grad():
+            outs.append(sample_fn(state, tuple(a[sl] for a in data_train),
+                                  x[sl], c[sl], eps))
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(len(slots)))
+
+
+def sweep_sample(config: TrainConfig, case: Case, result, data_train, x, c,
+                 cond: bool = False, n: int = 1, seed: int = 0, noise=None,
+                 chunk_size: Optional[int] = None):
+    """``model.sample`` of every member: the stacked 9-tuple, each with a
+    leading member axis. ``data_train`` (the members' training sets, for
+    their scalers), ``x`` and ``c`` carry a leading member axis; noise as
+    in ``_sample_members``."""
+    return _sample_members(config, case, result, data_train, x, c,
+                           cond=cond, n=n, slots=tuple(range(9)), seed=seed,
+                           noise=noise, chunk_size=chunk_size)
+
+
+def sweep_predict_y(config: TrainConfig, case: Case, result, data_train, x,
+                    c, cond: bool = False, n: int = 1, seed: int = 0,
+                    noise=None, chunk_size: Optional[int] = None):
+    """The posterior-mean ŷ of every member, (M, n_test, nd_y): only the
+    y slot is sampled (no decoder_x), its mean over n samples."""
+    (y,) = _sample_members(config, case, result, data_train, x, c,
+                           cond=cond, n=n, slots=(4,), seed=seed,
+                           noise=noise, chunk_size=chunk_size)
+    return torch.mean(y, dim=1)
+
+
+def regressor_datasets(case: Case, generator, n_train_reg: int,
+                       n_test_reg: int):
+    """The probes' (train, test) datasets of one member, drawn in turn
+    from its generator."""
+    gt = case.gt_dist()
+    return tuple(sample_response(case, generator, n, sample_dist=gt,
+                                 device=generator.device)
+                 for n in (n_train_reg, n_test_reg))
+
+
+def sweep_disentanglement_latents(
+    config: TrainConfig, case: Case, result, n_train_reg: int,
+    n_test_reg: int, cond: bool = False, use_mean: bool = False,
+    seed: int = 1, chunk_size: Optional[int] = None, noise=None,
+):
+    """Posterior latents of every member on fresh probe datasets.
+
+    Per member: its training data replayed from its key (for its scalers,
+    as it trained), probe train/test datasets drawn from its own
+    generator, seeded from (seed, member) (``regressor_datasets``), and
+    the MC-mean latents (one sample, or ``config.n_mc_test`` with
+    ``use_mean``) of both splits, the encoder's noise drawn from the same
+    generator after the datasets, or taken from ``noise``, a pair of
+    stacked mappings (train, test). Members run in chunks of
+    ``chunk_size`` (default ``LATENTS_CHUNK_DEFAULT``).
+
+    Returns a dict of (M, ...) tensors: zx/zc/zy_{train,test} and the
+    ground-truth factors z_{train,test}.
+    """
+    config = member_config(config)
+    n = config.n_mc_test if use_mean else 1
+    device = torch.device(result.device)
+    template = make_template_model(config, case, device=device)
+    gens = member_generators(seed, range(result.n_members), device)
+    dtr_member, splits, eps = [], ([], []), ([], [])
+    for g, gen in zip(gens, _generators(result.keys, device)):
+        dtr_member.append(sample_response(
+            case, gen, config.n_train, sample_dist=case.gt_dist(),
+            device=device)[:3])
+        for split, data in zip(splits, regressor_datasets(
+                case, g, n_train_reg, n_test_reg)):
+            split.append(data)
+        if noise is None:
+            for e, data in zip(eps, (splits[0][-1], splits[1][-1])):
+                e.append(_observation_noise(template, g, n, data[0].shape[0],
+                                            cond, (5, 6, 7), device))
+    stack = lambda rows, k: torch.stack([r[k] for r in rows])
+    data_train = tuple(stack(dtr_member, k) for k in range(3))
+    out = {}
+    for name, rows, e in (("train", splits[0], eps[0]),
+                          ("test", splits[1], eps[1])):
+        mapping = (_stack_noise(e) if noise is None
+                   else noise[0 if name == "train" else 1])
+        zx, zc, zy = _sample_members(
+            config, case, result, data_train, stack(rows, 0), stack(rows, 1),
+            cond=cond, n=n, slots=(5, 6, 7), seed=seed, noise=mapping,
+            chunk_size=chunk_size)
+        out.update({f"zx_{name}": zx.mean(1), f"zc_{name}": zc.mean(1),
+                    f"zy_{name}": zy.mean(1), f"z_{name}": stack(rows, 3)})
+    return out

@@ -16,15 +16,19 @@ the device by itself.
 
 ``Trainer`` holds one run's state and exposes the single train step, with
 a seam for tests: explicit ``batch_idx`` and ``noise`` in place of the
-generator. Not ported: data parallelism over a mesh, per-run
-hyperparameter overrides, progress narration, scan unrolling, the
-executable cache and a CUDA-graph or compiled step loop (ROADMAP.md,
-queue 1, item 5).
+generator. ``MemberTrainer`` and ``build_member_train_fn`` train M runs at
+once (the sweeps' engine, the counterpart of ``train_fn`` under
+``jax.vmap`` with per-run λ and ``hyper`` inputs), with the same loop and
+seam. Not ported: data parallelism over a mesh, progress narration, scan
+unrolling, the executable cache and a CUDA-graph or compiled step loop
+(ROADMAP.md, queue 1, item 5).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -32,15 +36,20 @@ import torch
 
 from dpivae_tpu_torch.cases import Case
 from dpivae_tpu_torch.config import TrainConfig
-from dpivae_tpu_torch.models.vae import DPIVAEParams
-from dpivae_tpu_torch.train.optim import clip_grad_global_norm_, make_optimizer
-from dpivae_tpu_torch.train.setup import setup_model
-from dpivae_tpu_torch.utils import DeviceLike, rand, resolve_device
+from dpivae_tpu_torch.models.vae import DPIVAEParams, bind_params
+from dpivae_tpu_torch.train.optim import (
+    MemberAdam,
+    clip_grad_global_norm_,
+    make_optimizer,
+)
+from dpivae_tpu_torch.train.setup import make_template_model, setup_model
+from dpivae_tpu_torch.utils import DeviceLike, rand, randn, resolve_device
 from dpivae_tpu_torch.utils.annealing import make_schedule
 from dpivae_tpu_torch.utils.early_stopping import (
     early_stop_init,
     early_stop_update,
 )
+from dpivae_tpu_torch.utils.transforms import StandardScaler
 
 TRAIN_COLUMNS = (
     "ELBO", "KLx", "KLc", "KLy", "Rx", "Rc", "Ry", "reg",
@@ -242,3 +251,306 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
         )
     train_fn = build_train_fn(config, case)
     return train_fn(params, generator, data_train, data_val, config.lambda_g0)
+
+
+# ----------------------------------------------------------------------
+# Member-batched training: the counterpart of build_train_fn's train_fn
+# under jax.vmap (dpivae_tpu/sweep/sweep.py:430-467), with the per-run
+# lambda_g0 and ``hyper`` inputs (dpivae_tpu/train/train.py:125-132,
+# 461-475).
+# ----------------------------------------------------------------------
+
+# Config fields that may differ between the members of one batched
+# training: they enter the step only as values (loss weights, optimizer
+# scales), so the members still share one program.
+TRACEABLE_HYPER_FIELDS = frozenset({
+    "lr_e", "lr_ex", "lr_ec", "lr_ey", "lr_p",
+    "lr_dx", "lr_dc", "lr_dy", "lr_sigma",
+    "wd_e", "wd_p", "wd_dx", "wd_dc", "wd_dy", "wd_sigma",
+    "max_grad_norm",
+    "beta_x0", "beta_c0", "beta_y0",
+    "alpha_x", "alpha_c", "alpha_y",
+})
+
+
+def member_config(config: TrainConfig) -> TrainConfig:
+    """The config a batched training runs: ``use_pallas="auto"`` resolved
+    to the plain path and ``mc_chunk="auto"`` to None, as the JAX package
+    resolves them for its sweeps (dpivae_tpu/sweep/sweep.py:415-420; the
+    member-folded mc_chunk threshold there is a TPU VMEM cliff). An
+    explicit ``use_pallas=True`` is kept: the members then run through the
+    member-batched kernels."""
+    if config.use_pallas == "auto":
+        config = config.replace(use_pallas=False)
+    if config.mc_chunk == "auto":
+        config = config.replace(mc_chunk=None)
+    return config
+
+
+def member_generators(seed: int, ids, device: DeviceLike = None):
+    """One ``torch.Generator`` on ``device`` per member, seeded from the
+    sweep ``seed`` and the member's id (its index, or its run index where
+    members share seeds): each draws its member's data, init and training
+    noise, so a member's result depends neither on the chunk it runs in
+    nor on the members beside it."""
+    device = resolve_device(device)
+    gens = []
+    for i in ids:
+        state = np.random.SeedSequence([int(seed), int(i)]).generate_state(
+            2, dtype=np.uint32)
+        g = torch.Generator(device=device)
+        g.manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
+        gens.append(g)
+    return gens
+
+
+def encoder_noise(model, generator: torch.Generator, n: int, batch: int,
+                  device: torch.device) -> torch.Tensor:
+    """The (n, batch, nz) encoder normals ``DPIVAE.encode`` draws from
+    ``generator`` for ``n`` samples of ``batch`` points, drawn the same way
+    (one draw for the S model; the x, c and y encoders' draws in turn for
+    the P model), so that ``noise={"z": ...}`` reproduces them."""
+    if model.model_type == "S":
+        return randn((n, batch, model.nz_x + model.nz_c + model.nz_y),
+                     generator, device)
+    return torch.cat([randn((n, batch, d), generator, device)
+                      for d in (model.nz_x, model.nz_c, model.nz_y)], dim=-1)
+
+
+def stack_params(params) -> dict:
+    """Member params (a sequence of ``DPIVAEParams``) as one state dict of
+    (M, ...) tensors, detached."""
+    states = [p.state_dict() for p in params]
+    return {k: torch.stack([s[k].detach() for s in states])
+            for k in states[0]}
+
+
+class MemberTrainer:
+    """M runs trained at once, each with its own data, params, λ and
+    (optionally) hyperparameters: the single-run ``Trainer`` under
+    ``torch.func.vmap``. The model code stays single-member: each step is
+    ``vmap(grad(...))`` of the single-run loss through ``functional_call``
+    on the members' stacked params, and the fused-MLP kernels' vmap rules
+    launch once for all members. Batch rows and encoder noise are drawn
+    outside vmap, from one generator per member, and passed in through the
+    loss's ``noise`` seam. ``MemberAdam`` updates the stacked params.
+
+    Args:
+        params: state dict of (M, ...) tensors (``stack_params``); copied.
+        data_train, data_val: (x, c, y[, ...]) with a leading member axis;
+            each member's input scalers are fitted on its own training
+            data, as JAX refits them in the trace.
+        lambdas: (M,) GRL strengths.
+        hyper: config field (``TRACEABLE_HYPER_FIELDS``) -> (M,) values.
+    """
+
+    def __init__(self, config: TrainConfig, case: Case, params: dict,
+                 data_train, data_val, lambdas, hyper=None):
+        hyper = dict(hyper or {})
+        bad = set(hyper) - TRACEABLE_HYPER_FIELDS
+        if bad:
+            raise ValueError(f"{sorted(bad)} cannot differ between members; "
+                             f"allowed: {sorted(TRACEABLE_HYPER_FIELDS)}")
+        self.config = config = member_config(config)
+        if config.remat_decode:
+            # torch.func.grad refuses the saved-tensor hooks of
+            # torch.utils.checkpoint (torch 2.13).
+            raise NotImplementedError(
+                "remat_decode is not supported in member-batched training: "
+                "torch.func.grad does not take torch.utils.checkpoint's "
+                "saved-tensor hooks")
+        first = next(iter(params.values()))
+        self.device = device = first.device
+        self.n_members = m = first.shape[0]
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        self.data_train = tuple(as_t(a) for a in data_train[:3])
+        self.data_val = tuple(as_t(a) for a in data_val[:3])
+        for a in (*self.data_train, *self.data_val):
+            if a.shape[0] != m:
+                raise ValueError(f"data has {a.shape[0]} members, params {m}")
+        self.template = make_template_model(config, case, device=device)
+        self.scalers = tuple(
+            (torch.mean(a, dim=1, keepdim=True),
+             torch.std(a, dim=1, keepdim=True, correction=0))
+            for a in self.data_train)
+        self.optimizer = MemberAdam(config, params, hyper)
+        self.params = self.optimizer.params
+        self._bound = bind_params(self.template)
+
+        def per_member(field):
+            if field in hyper:
+                return as_t(hyper[field]).reshape(m)
+            return torch.full((m,), float(getattr(config, field)),
+                              device=device)
+
+        self.alphas = torch.stack([per_member(f"alpha_{b}") for b in "xcy"],
+                                  dim=1)
+        scales = torch.stack(
+            [as_t(lambdas).reshape(m)] + [per_member(f"beta_{b}0")
+                                          for b in "xcy"], dim=1)
+        shape = np.ones((config.n_iter, 4))
+        for col, which in enumerate(("lambda", "beta_x", "beta_c", "beta_y")):
+            sched = make_schedule(config.annealing(which), config.n_iter)
+            if getattr(sched, "constant_value", None) is None:
+                shape[:, col] = [float(sched(s)) for s in range(config.n_iter)]
+            else:
+                shape[:, col] = sched.constant_value
+        # (M, n_iter, 4): scale x schedule in float64, then f32, as the
+        # single run forms each row.
+        self.schedule = (scales.double().cpu()[:, None, :]
+                         * torch.from_numpy(shape)[None]).float().to(device)
+
+        def divisors(n_points):
+            denom = n_points * (case.nd_x + case.nd_y + case.nd_c)
+            return torch.tensor([denom] + [n_points] * 7,
+                                dtype=torch.float32, device=device)
+
+        self._div_train = divisors(config.n_batch)
+        self._div_val = divisors(config.n_val)
+        self._grad_fn = torch.func.vmap(torch.func.grad(functools.partial(
+            self._member_loss, divisors=self._div_train), has_aux=True))
+        self._value_fn = torch.func.vmap(functools.partial(
+            self._member_comps, divisors=self._div_val))
+
+    # -- one member, under vmap ----------------------------------------
+    def _member_comps(self, p, x, c, y, eps, scalers, sched, alphas, *,
+                      divisors):
+        """The normalised loss components (8,) of one member."""
+        model = dataclasses.replace(
+            self.template, **{name: StandardScaler(*s) for name, s in zip(
+                ("transform_x", "transform_c", "transform_y"), scalers)})
+        out = self._bound(model, "loss", p, x, c, y, n=eps.shape[0],
+                          beta_x=sched[1], beta_c=sched[2], beta_y=sched[3],
+                          alpha_x=alphas[0], alpha_c=alphas[1],
+                          alpha_y=alphas[2], grl_alpha=sched[0],
+                          noise={"z": eps})
+        return torch.sum(torch.stack(out), dim=1) / divisors
+
+    def _member_loss(self, p, *args, divisors):
+        comps = self._member_comps(p, *args, divisors=divisors)
+        return comps[0], comps.detach()
+
+    # -- the batched step ----------------------------------------------
+    def _draw_batch(self, generators):
+        cfg = self.config
+        u = torch.stack([rand((cfg.n_train,), g, self.device)
+                         for g in generators])
+        return torch.topk(u, cfg.n_batch, dim=1).indices
+
+    def _draw_noise(self, generators, n, batch):
+        return torch.stack([encoder_noise(self.template, g, n, batch,
+                                          self.device) for g in generators])
+
+    def grads(self, step_idx: int, *, generators=None, batch_idx=None,
+              noise=None):
+        """(comps (M, 8), gradients {name: (M, ...)}) of one step's
+        normalised loss, on a batch drawn from ``generators`` (one per
+        member) or the (M, n_batch) rows ``batch_idx`` with the encoder
+        normals ``noise={"z": (M, n, n_batch, nz)}``."""
+        cfg = self.config
+        if batch_idx is None:
+            batch_idx = self._draw_batch(generators)
+        eps = (self._draw_noise(generators, cfg.n_mc_train, cfg.n_batch)
+               if noise is None else noise["z"])
+        rows = torch.arange(self.n_members, device=self.device)[:, None]
+        batch_idx = torch.as_tensor(batch_idx, device=self.device)
+        batch = tuple(a[rows, batch_idx] for a in self.data_train)
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        grads, comps = self._grad_fn(
+            self.params, *batch, eps, self.scalers,
+            self.schedule[:, step_idx], self.alphas)
+        return comps, grads
+
+    def step(self, step_idx: int, *, generators=None, batch_idx=None,
+             noise=None) -> torch.Tensor:
+        """One optimizer step of every member; returns the (M, 13) log
+        rows in TRAIN_COLUMNS order, on the device."""
+        comps, grads = self.grads(step_idx, generators=generators,
+                                  batch_idx=batch_idx, noise=noise)
+        self.optimizer.step(grads)
+        sigma_x = torch.exp(self.params["log_sigma_x"]).reshape(-1, 1)
+        return torch.cat([comps, self.schedule[:, step_idx], sigma_x], dim=1)
+
+    def validate(self, step_idx: int, *, generators=None,
+                 noise=None) -> torch.Tensor:
+        """The (M, 8) validation components in VAL_COLUMNS order."""
+        cfg = self.config
+        eps = (self._draw_noise(generators, cfg.n_mc_val, cfg.n_val)
+               if noise is None else noise["z"])
+        with torch.no_grad():
+            return self._value_fn(
+                self.params, *self.data_val,
+                torch.as_tensor(eps, dtype=torch.float32, device=self.device),
+                self.scalers, self.schedule[:, step_idx], self.alphas)
+
+
+def build_member_train_fn(config: TrainConfig, case: Case):
+    """Returns ``train_fn(params, generators, data_train, data_val,
+    lambdas, hyper=None) -> (params, TrainLogs)`` for M members at once:
+    ``build_train_fn``'s loop over a ``MemberTrainer``, with logs of shape
+    (M, n_iter, 13) and (M, n_blocks, 8) and params a state dict of (M,
+    ...) tensors.
+
+    Early stopping is per member, at block granularity as in the JAX
+    package (dpivae_tpu/train/train.py:398-441): a member whose stop
+    latches at a block's validation keeps its state right after that
+    block's first step (the single run's break point), and a member
+    stopped before a block keeps its state through it, both restored with
+    ``torch.where`` on params and Adam moments; their rows past the stop
+    are NaN and inactive. The (M,) validation losses are read once per
+    block, and the loop ends early only when every member has stopped.
+    """
+    config = member_config(config)
+    n_iter, vf = config.n_iter, config.val_freq
+    n_blocks = -(-n_iter // vf)
+
+    def train_fn(params, generators, data_train, data_val, lambdas,
+                 hyper=None):
+        run = MemberTrainer(config, case, params, data_train, data_val,
+                            lambdas, hyper)
+        m, device = run.n_members, run.device
+        if len(generators) != m:
+            raise ValueError(f"{len(generators)} generators for {m} members")
+        nan = lambda *shape: torch.full(shape, float("nan"), device=device)
+        train = nan(m, n_iter, len(TRAIN_COLUMNS))
+        val = nan(m, n_blocks, len(VAL_COLUMNS))
+        es = [early_stop_init() for _ in range(m)]
+        stop_iter = np.full(m, n_iter)
+        live_blocks = np.full(m, n_blocks)
+        for block in range(n_blocks):
+            entry_stopped = np.array([s.stopped for s in es])
+            if entry_stopped.all():
+                break
+            entry = run.optimizer.state() if entry_stopped.any() else None
+            start = block * vf
+            train[:, start] = run.step(start, generators=generators)
+            val[:, block] = run.validate(start, generators=generators)
+            losses = val[:, block, 0].cpu().numpy()
+            es = [early_stop_update(s, v, config.patience, config.min_delta)
+                  for s, v in zip(es, losses)]
+            stopped_here = np.array([s.stopped for s in es]) & ~entry_stopped
+            mid = run.optimizer.state() if stopped_here.any() else None
+            for i in range(start + 1, min(start + vf, n_iter)):
+                train[:, i] = run.step(i, generators=generators)
+            if mid is not None:
+                run.optimizer.restore(torch.from_numpy(stopped_here), mid)
+                stop_iter[stopped_here] = start + 1
+                live_blocks[stopped_here] = block + 1
+            if entry is not None:
+                run.optimizer.restore(torch.from_numpy(entry_stopped), entry)
+        steps = torch.arange(n_iter, device=device)
+        blocks = torch.arange(n_blocks, device=device)
+        train_active = steps[None] < torch.as_tensor(stop_iter,
+                                                     device=device)[:, None]
+        val_active = blocks[None] < torch.as_tensor(live_blocks,
+                                                    device=device)[:, None]
+        train[~train_active] = float("nan")
+        val[~val_active] = float("nan")
+        params_out = {k: v.detach().clone() for k, v in run.params.items()}
+        return params_out, TrainLogs(
+            train=train, val=val, train_active=train_active,
+            val_active=val_active,
+            val_iters=(blocks * vf)[None].expand(m, -1).clone(),
+        )
+
+    return train_fn

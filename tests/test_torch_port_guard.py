@@ -15,8 +15,13 @@ import torch
 from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.models.vae import DPIVAE
-from dpivae_tpu_torch.scripts import single_run
+from dpivae_tpu_torch.scripts import disentanglement_metric, single_run
 from dpivae_tpu_torch.serving import Predictor
+from dpivae_tpu_torch.sweep import (
+    train_hyper_sweep,
+    train_sweep,
+    train_sweep_data,
+)
 from dpivae_tpu_torch.train import init_params, setup_model, train_model
 from dpivae_tpu_torch.train.checkpoint import load_model, save_model
 from dpivae_tpu_torch.utils.data import sample_response
@@ -73,13 +78,22 @@ def _entry_points(tmp_path):
         "load_model": lambda: load_model(saved, case),
         "single_run CLI": lambda: single_run.main(
             ["--n_iter", "2", "--output", str(tmp_path)]),
+        "train_sweep": lambda: train_sweep(cfg, case, [0.1, -0.1]),
+        "train_hyper_sweep": lambda: train_hyper_sweep(
+            cfg, case, {"lr_e": [1e-3, 2e-3]}),
+        "train_sweep_data": lambda: train_sweep_data(
+            cfg, case, [0.1], tuple(a[None] for a in data[:3]),
+            tuple(a[None] for a in data[:3])),
+        "disentanglement_metric CLI": lambda: disentanglement_metric.main(
+            ["--n_iter", "2", "--n_runs", "1", "--output", str(tmp_path)]),
     }
 
 
 @pytest.mark.parametrize("entry", [
     "sample_response", "setup_model", "DPIVAE.init", "init_params",
     "Predictor", "train_model", "P model init_params", "load_model",
-    "single_run CLI"])
+    "single_run CLI", "train_sweep", "train_hyper_sweep", "train_sweep_data",
+    "disentanglement_metric CLI"])
 def test_entry_point_without_device_needs_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")
