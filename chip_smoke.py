@@ -75,7 +75,9 @@ Phases; any failure exits non-zero before the result line:
    same seed exactly; LIN, GPR, MLP and the VAE must score finite R², MSE
    and MAE, LIN's R² within 1e-3 of float64 least squares on the same
    features; ``evaluate_model`` at 512 points x 512 MC must launch no
-   forward. Then ``disentanglement_metric`` with linear probes and with
+   forward. The run passes --export_serving: the artifact it wrote, loaded
+   on the card, must give the checkpoint's plain Predictor's y at seed 0
+   for the test set. Then ``disentanglement_metric`` with linear probes and with
    MLP probes (epochs cut from 300 to 30). Each stage's wall time is
    printed.
 9. The decode's options at bench.py's workload, 200 steps each, each
@@ -105,7 +107,36 @@ Phases; any failure exits non-zero before the result line:
    output under build/: its score rows and files, then a second call on
    the same output that resumes every chunk (no training step, no kernel
    launch) and writes the same scores.
-11. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+11. The serving artifact (``serving.save_predictor``/``load_predictor``,
+   ``torch.export``): phase 4's use_pallas=True model, all eight outputs,
+   exported (on the CPU, through the plain decode, with one warning) and
+   loaded on the card, answers requests of 1, 7 and 512 points x 512 MC
+   as the live plain Predictor and the live kernel Predictor do under the
+   same seed; the kernel Predictor launches the forward once per request,
+   the artifact never; warm per-request times of the three, in rotating
+   turns. Then bridge / "DPIVAE-A" with cond=True, exported before any
+   eager call of a fresh case (its surrogate's constants cache stays
+   empty), against its live Predictor.
+12. The transfer study (``dpivae_tpu_torch.scripts.regression_comparison``)
+   in process as a user runs it: bridge, extrapolation, 6 runs x 4
+   domains = 24 members per preset, --baselines jax, n_iter cut from
+   20,000 to 300, output under build/: "auto" launches neither kernel;
+   raw_metrics.csv has 120 finite rows of the five models, table.tex both
+   tables, timings.json every phase; mean R² per model beside
+   BASELINE.md's. A second call with --skip_baselines resumes every chunk
+   (no training step, no launch) and gives the same DPIVAE rows. A third
+   with the default --baselines sklearn (member by member; its GPR fitted
+   as scikit-learn fits it, float64 L-BFGS-B) resumes too: 120 finite
+   rows, the same DPIVAE rows, LIN rows equal to the batched call's
+   (atol 1e-4); GPR mean R² of both choices beside BASELINE.md's.
+   ``export_member_predictor`` of one member against ``member_model``'s
+   Predictor. Then ``train_sweep_data`` on the same 24 "DPIVAE-A"
+   datasets (the P model), 100 steps after a 20-step warm-up, with "auto"
+   and with use_pallas=True: each chunk's forward launches n_iter +
+   n_iter / val_freq times and its hidden kernel n_iter times, the first
+   10 rows of the two agree, a member's equal its single train_model run;
+   member-steps/s of both and a profile of one batched P-model step.
+13. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -144,6 +175,15 @@ N_ITER_WARM = 20   # a warm-up run before each timed options or sweep run
 N_ITER_SWEEP = 500   # bench.py's sweep workload's 2,000, cut for the limit
 N_ITER_STUDY = 500   # the study's 20,000, cut for the limit
 SWEEP_MEMBERS = 66
+N_ITER_TRANSFER = 300   # the transfer study's 20,000, cut for the limit
+N_ITER_TRANSFER_KERNEL = 100   # the use_pallas=True transfer grid's
+TRANSFER_RUNS = 6   # the study's own: 6 runs x 4 domains = 24 members
+# BASELINE.md's JAX transfer study (extrapolation, 20,000 steps, reference
+# scale), mean ± std of the test R² over its 24 folds: a quality
+# reference printed beside this run's, not a threshold.
+TRANSFER_R2_REFERENCE = {"DPIVAE-A": "0.631 ± 0.232",
+                         "DPIVAE-B": "0.789 ± 0.101", "GPR": "0.826 ± 0.102",
+                         "LIN": "0.632 ± 0.246", "MLP": "0.443 ± 0.288"}
 PROBE_EPOCHS = 30   # the MLP probes', cut from 300
 LSTSQ_TOL = 1e-3
 N_ROWS_COMPARED = 10
@@ -475,7 +515,8 @@ def _serving(ops, failures, case_name, preset):
     requests of n_test points x n_mc_test MC samples, counted, checked
     against a use_pallas=False model of the same weights, and timed in
     alternating turns. Returns (forward launches, kernel and plain model
-    per-request medians in ms, the predictor, one request)."""
+    per-request medians in ms, the predictor, one request, the model's
+    (config, case, model, params))."""
     from dpivae_tpu_torch import TrainConfig
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor
@@ -544,23 +585,16 @@ def _serving(ops, failures, case_name, preset):
           f"{worst:.3e} (rtol {RTOL} atol {ATOL})")
 
     # Per-request time, kernel and plain models in alternating turns.
-    x, c = requests[0]
-    times = {predictor: [], plain: []}
-    for p in times:
-        for _ in range(3):
-            p(x, c, seed=0)
-    for i in range(N_TIMED_REQUESTS):
-        for p in ((predictor, plain) if i % 2 == 0 else (plain, predictor)):
-            t0 = time.perf_counter()
-            p(x, c, seed=i)  # returns numpy: ends in a device sync
-            times[p].append(1e3 * (time.perf_counter() - t0))
-    for name, p in (("kernel", predictor), ("plain", plain)):
-        q1, q2, q3 = statistics.quantiles(times[p], n=4)
+    times = _per_request_times({"kernel": predictor, "plain": plain},
+                               *requests[0])
+    for name, t in times.items():
+        q1, q2, q3 = statistics.quantiles(t, n=4)
         print(f"per request {what}, {name} model: median {q2:.3f} ms, "
               f"quartiles {q1:.3f}-{q3:.3f} ms over {N_TIMED_REQUESTS} "
               f"requests")
-    return (launches, statistics.median(times[predictor]),
-            statistics.median(times[plain]), predictor, requests[0])
+    return (launches, statistics.median(times["kernel"]),
+            statistics.median(times["plain"]), predictor, requests[0],
+            (cfg, case, model, params))
 
 
 def _device_events(prof):
@@ -877,7 +911,7 @@ def _single_run(ops, failures, card):
 
     from dpivae_tpu_torch.eval import disentanglement_metric, evaluate_model
     from dpivae_tpu_torch.scripts import single_run
-    from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor
+    from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor, load_predictor
     from dpivae_tpu_torch.train.checkpoint import load_model
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -888,7 +922,7 @@ def _single_run(ops, failures, card):
         run = single_run.main([
             "--case", "simple_beam", "--preset", "dpivae", "--name",
             "chip_smoke", "--n_iter", str(N_ITER_SINGLE_RUN), "--output", out,
-            "--device", "cuda"])
+            "--device", "cuda", "--export_serving"])
         wall = time.perf_counter() - t0
         launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
         cfg = run.config
@@ -913,6 +947,21 @@ def _single_run(ops, failures, card):
             device="cuda")
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        served = load_predictor(run.paths["predictor"], device="cuda")
+    x, c = run.data_test[:2]
+    got_y = served(x, c, seed=SEED)["y"]
+    want_y = Predictor(dataclasses.replace(model, use_pallas=False), params,
+                       cfg, device="cuda")(x, c, seed=SEED)["y"]
+    worst = float(np.abs(got_y - want_y).max())
+    ok = np.allclose(got_y, want_y, rtol=RTOL, atol=ATOL)
+    print(f"single run --export_serving: the artifact loaded on the card, y "
+          f"at {cfg.n_test} points x {cfg.n_mc_test} MC, seed {SEED}, vs the "
+          f"checkpoint's plain Predictor: max_abs_err {worst:.3e} (rtol "
+          f"{RTOL} atol {ATOL}) {'ok' if ok else 'MISMATCH'}; export "
+          f"{run.seconds['export']:.3f} s")
+    if not ok:
+        failures.append("single run: the serving artifact disagrees with the "
+                        "checkpoint's plain Predictor")
     outputs = tuple(SAMPLE_SLOTS)
     x, c = run.data_test[:2]
     got = Predictor(model, params, cfg, outputs=outputs, device="cuda")(
@@ -1280,8 +1329,10 @@ def _sweep(ops, failures, card):
                                 for k, t in times.items()}
 
 
-def _profile_sweep_step(cfg, case, lambdas):
-    """torch.profiler's view of one warm member-batched train step."""
+def _profile_sweep_step(cfg, case, lambdas, data=None):
+    """torch.profiler's view of one warm member-batched train step, of
+    len(lambdas) members: each member's datasets from its generator, or
+    ``data``, the stacked (train, val) of a data sweep."""
     from torch.profiler import ProfilerActivity, profile
 
     from dpivae_tpu_torch.sweep.sweep import _generators, _keys, \
@@ -1289,9 +1340,13 @@ def _profile_sweep_step(cfg, case, lambdas):
     from dpivae_tpu_torch.train.setup import make_template_model
     from dpivae_tpu_torch.train.train import MemberTrainer, stack_params
 
-    gens = _generators(_keys(SEED, range(SWEEP_MEMBERS)), "cuda")
+    m = len(lambdas)
+    gens = _generators(_keys(SEED, range(m)), "cuda")
     template = make_template_model(cfg, case, device="cuda")
-    starts = [_member_start(cfg, case, template, g) for g in gens]
+    starts = [_member_start(cfg, case, template, g, None if data is None
+                            else tuple(tuple(a[j] for a in d[:3])
+                                       for d in data))
+              for j, g in enumerate(gens)]
     stack = lambda k: tuple(torch.stack([s[k][c] for s in starts])
                             for c in range(3))
     run = MemberTrainer(cfg, case, stack_params([s[2] for s in starts]),
@@ -1312,10 +1367,11 @@ def _profile_sweep_step(cfg, case, lambdas):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = _device_events(prof)
-    _print_profile(f"one batched train step of {SWEEP_MEMBERS} members",
+    _print_profile(f"one batched train step of {m} {case.name} / "
+                   f"{cfg.name!r} ({run.template.model_type} model) members",
                    events, wall_ms, step_ms)
     for kernel in ("fused_mlp_fwd_kernel", "fused_mlp_hidden_kernel"):
-        _per_launch(events, kernel, f"{SWEEP_MEMBERS} x 1024 rows")
+        _per_launch(events, kernel, f"{m} x 1024 rows")
 
 
 def _study(ops, failures, card):
@@ -1392,6 +1448,379 @@ def _study(ops, failures, card):
     return tuple(total)
 
 
+def _per_request_times(predictors, x, c):
+    """Warm per-request wall times (ms) of each named predictor, over
+    N_TIMED_REQUESTS requests taken in rotating turns."""
+    times = {name: [] for name in predictors}
+    for p in predictors.values():
+        for _ in range(3):
+            p(x, c, seed=0)
+    names = list(predictors)
+    for i in range(N_TIMED_REQUESTS):
+        for name in names[i % len(names):] + names[:i % len(names)]:
+            t0 = time.perf_counter()
+            predictors[name](x, c, seed=i)  # returns numpy: a device sync
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def _compare(what, got, want, failures, rtol=RTOL, atol=ATOL):
+    """Max abs error of two dicts of numpy outputs; a failure if any output
+    is outside rtol/atol or not finite."""
+    import numpy as np
+
+    worst = 0.0
+    for name in want:
+        worst = max(worst, float(np.abs(got[name] - want[name]).max()))
+        if not (np.isfinite(got[name]).all()
+                and np.allclose(got[name], want[name], rtol=rtol, atol=atol)):
+            failures.append(f"{what}: {name} disagrees")
+    return worst
+
+
+def _artifact(ops, failures, card, setup, request):
+    """The serving artifact (phase 11). Returns the forward launches of the
+    live kernel Predictor's counted requests."""
+    import tempfile
+    import warnings
+
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import bridge as bridge_module
+    from dpivae_tpu_torch.serving import (
+        SAMPLE_SLOTS,
+        Predictor,
+        load_predictor,
+        save_predictor,
+    )
+    from dpivae_tpu_torch.train import init_params, setup_model
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    cfg, case, model, params = setup
+    outputs = tuple(SAMPLE_SLOTS)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as out:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            path = save_predictor(os.path.join(out, "beam.pt2"), model,
+                                  params, cfg, case, outputs=outputs)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = load_predictor(path, device="cuda")
+        load_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+    warned = sum("use_pallas=True" in str(w.message) for w in caught)
+    print(f"artifact simple_beam / 'dpivae' (use_pallas=True model, "
+          f"{len(outputs)} outputs, {cfg.n_mc_test} MC): exported on the CPU "
+          f"in {export_s:.2f} s ({warned} warning that it runs the plain "
+          f"decode), {size_mb:.2f} MB, loaded on the card in {load_s:.2f} s; "
+          f"torch {served.meta['torch_version']}")
+    if warned != 1 or served.device.type != "cuda":
+        failures.append(f"artifact: {warned} use_pallas warnings, device "
+                        f"{served.device}")
+    kernel = Predictor(model, params, cfg, outputs=outputs, device="cuda")
+    plain = Predictor(dataclasses.replace(model, use_pallas=False), params,
+                      cfg, outputs=outputs, device="cuda")
+    x, c = request
+    launches = {"artifact": 0, "kernel": 0}
+    for size in (1, 7, cfg.n_test):
+        xs, cs = x[:size], c[:size]
+        answers = {}
+        for name, p in (("artifact", served), ("kernel", kernel),
+                        ("plain", plain)):
+            before = ops.fused_mlp.launches
+            answers[name] = p(xs, cs, seed=size)
+            if name in launches:
+                launches[name] += ops.fused_mlp.launches - before
+        if any(v.shape[0] != size for v in answers["artifact"].values()):
+            failures.append(f"artifact: wrong batch at {size} points")
+        err_plain = _compare(f"artifact vs plain Predictor at {size} points",
+                             answers["artifact"], answers["plain"], failures)
+        err_kernel = _compare(f"artifact vs kernel Predictor at {size} "
+                              f"points", answers["artifact"],
+                              answers["kernel"], failures)
+        print(f"artifact request of {size} points x {cfg.n_mc_test} MC, seed "
+              f"{size}: max_abs_err vs the live plain Predictor "
+              f"{err_plain:.3e}, vs the live kernel Predictor "
+              f"{err_kernel:.3e} (rtol {RTOL} atol {ATOL})")
+    print(f"artifact launches over the 3 requests: artifact "
+          f"{launches['artifact']} (expected 0), live kernel Predictor "
+          f"{launches['kernel']} (expected 3)")
+    if launches != {"artifact": 0, "kernel": 3}:
+        failures.append(f"artifact: launches {launches}")
+    times = _per_request_times(
+        {"artifact": served, "plain": plain, "kernel": kernel}, x, c)
+    for name, t in times.items():
+        q1, q2, q3 = statistics.quantiles(t, n=4)
+        print(f"per request {cfg.n_test} x {cfg.n_mc_test} MC ({card}), "
+              f"{name}: median "
+              f"{q2:.3f} ms, quartiles {q1:.3f}-{q3:.3f} ms over "
+              f"{N_TIMED_REQUESTS} requests (rotating turns)")
+
+    # bridge / "DPIVAE-A" with cond, exported before any eager call: a
+    # fresh case whose partial-physics surrogate has decoded nothing.
+    fresh = bridge_module.build.__wrapped__()
+    b_cfg = TrainConfig().with_preset(fresh.presets["DPIVAE-A"]).replace(
+        use_seed=True, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    data = sample_response(fresh, gen, b_cfg.n_train,
+                           sample_dist=fresh.gt_dist(), device="cuda")
+    b_model = setup_model(b_cfg, fresh, data, device="cuda")
+    b_params = init_params(b_cfg, b_model, device="cuda")
+    cold = not fresh.part_model._copies
+    with tempfile.TemporaryDirectory(dir=root) as out:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            path = save_predictor(os.path.join(out, "bridge.pt2"), b_model,
+                                  b_params, b_cfg, fresh, cond=True,
+                                  outputs=outputs)
+        still_cold = not fresh.part_model._copies
+        b_served = load_predictor(path, device="cuda")
+    xb, cb = sample_response(fresh, gen, b_cfg.n_test,
+                             sample_dist=fresh.gt_dist(), device="cuda")[:2]
+    live = Predictor(dataclasses.replace(b_model, use_pallas=False), b_params,
+                     b_cfg, cond=True, outputs=outputs, device="cuda")
+    err = _compare("bridge artifact (cond) vs its live Predictor",
+                   b_served(xb, cb, seed=SEED), live(xb, cb, seed=SEED),
+                   failures)
+    print(f"artifact bridge / 'DPIVAE-A' (P model), cond=True, exported "
+          f"before any eager call (surrogate cache empty before {cold}, "
+          f"after {still_cold}): {b_cfg.n_test} points x {b_cfg.n_mc_test} "
+          f"MC vs its live plain Predictor max_abs_err {err:.3e} (rtol "
+          f"{RTOL} atol {ATOL})")
+    if not (cold and still_cold):
+        failures.append("artifact: the export left constants in the "
+                        "surrogate's cache")
+    return launches["kernel"]
+
+
+def _transfer(ops, failures, card):
+    """The transfer study in process, its resume, a member's artifact, then
+    the use_pallas=True grid on the same datasets (phase 12). Returns the
+    (forward, hidden) launches of the counted runs."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from dpivae_tpu_torch.scripts import regression_comparison as transfer
+    from dpivae_tpu_torch.serving import Predictor, load_predictor
+    from dpivae_tpu_torch.sweep import (
+        auto_chunk_size,
+        export_member_predictor,
+        member_model,
+        train_sweep_data,
+    )
+    from dpivae_tpu_torch.train import setup_model, train_model
+    from dpivae_tpu_torch.train import train as train_mod
+    from dpivae_tpu_torch.train.setup import make_template_model
+    from dpivae_tpu_torch.train.train import member_config, member_generators
+
+    steps = [0]
+    step = train_mod.MemberTrainer.step
+
+    def counted(self, *args, **kwargs):
+        steps[0] += 1
+        return step(self, *args, **kwargs)
+
+    train_mod.MemberTrainer.step = counted
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    total = [0, 0]
+    calls = []
+    try:
+        with tempfile.TemporaryDirectory(dir=root) as out:
+            argv = ["--case", "bridge", "--dist_type", "extrapolation",
+                    "--n_runs", str(TRANSFER_RUNS),
+                    "--n_iter", str(N_ITER_TRANSFER), "--output", out,
+                    "--device", "cuda"]
+            jax = ["--baselines", "jax"]
+            # batched baselines; resumed without them; resumed with the
+            # default (sklearn) baselines
+            for extra in (jax, jax + ["--skip_baselines"], []):
+                steps[0] = 0
+                ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+                t0 = time.perf_counter()
+                run = transfer.main(argv + extra)
+                wall = time.perf_counter() - t0
+                launched = (ops.fused_mlp.launches,
+                            ops.fused_mlp_hidden.launches)
+                total = [a + b for a, b in zip(total, launched)]
+                with open(os.path.join(run.path, "metrics",
+                                       "raw_metrics.csv")) as f:
+                    rows = list(csv.reader(f))
+                with open(os.path.join(run.path, "metrics", "table.tex")) as f:
+                    tex = f.read()
+                with open(os.path.join(run.path, "timings.json")) as f:
+                    timings = json.load(f)
+                calls.append((run, rows, tex, timings, steps[0], launched,
+                              wall))
+            # One member of the "DPIVAE-A" grid as a serving artifact
+            first = calls[0][0]
+            member = 5
+            data_train = tuple(a[member] for a in first.data[0])
+            cfg_a = first.config.with_preset(first.case.presets["DPIVAE-A"])
+            path = export_member_predictor(
+                cfg_a, first.case, first.results["DPIVAE-A"], member,
+                os.path.join(out, "member.pt2"), data_train=data_train,
+                outputs=("y", "zx"))
+            served = load_predictor(path, device="cuda")
+    finally:
+        train_mod.MemberTrainer.step = step
+    (run, rows, tex, timings, n_steps, launched, wall) = calls[0]
+    case = run.case
+    n_members = TRANSFER_RUNS * transfer.N_DOMAINS
+    want_rows = n_members * 5
+    body = rows[1:]
+    finite = all(math.isfinite(float(v)) for r in body for v in r[3:])
+    models = {r[2] for r in body}
+    print(f"transfer study bridge extrapolation ({card}): {n_members} members "
+          f"per preset ({TRANSFER_RUNS} runs x 4 domains), {N_ITER_TRANSFER} "
+          f"steps, --baselines jax: {len(body)} rows (expected {want_rows}), "
+          f"{'finite' if finite else 'NOT FINITE'}, models {sorted(models)}; "
+          f"{n_steps} batched steps; launches {launched} (expected (0, 0): "
+          f"'auto' is plain in sweeps); {wall:.2f} s; stages " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in timings.items()))
+    if (tuple(rows[0]) != transfer.CSV_COLUMNS or len(body) != want_rows
+            or not finite or models != {"DPIVAE-A", "DPIVAE-B", "GPR", "LIN",
+                                         "MLP"}):
+        failures.append("transfer: raw_metrics.csv rows missing, mis-headed "
+                        "or not finite")
+    if launched != (0, 0):
+        failures.append(f"transfer: 'auto' launched {launched}")
+    if tex.count("\\begin{table}") != 2 or "(avg over domains)" not in tex:
+        failures.append("transfer: table.tex lacks its two tables")
+    phases = {"device_init", "train_DPIVAE-A", "predict_DPIVAE-A",
+              "train_DPIVAE-B", "predict_DPIVAE-B", "baselines", "total"}
+    if set(timings) != phases:
+        failures.append(f"transfer: timings.json phases {sorted(timings)}")
+    by_model = {}
+    for r in body:
+        by_model.setdefault(r[2], []).append(float(r[3]))
+    print(f"transfer mean R² over {n_members} folds after {N_ITER_TRANSFER} "
+          f"steps (BASELINE.md's JAX study after 20,000 steps beside it, for "
+          f"reference): " + ", ".join(
+              f"{k} {np.mean(v):.3f} ± {np.std(v, ddof=1):.3f} "
+              f"({TRANSFER_R2_REFERENCE[k]})"
+              for k, v in sorted(by_model.items())))
+    run2, rows2, _, timings2, n_steps2, launched2, wall2 = calls[1]
+    same = rows2[1:] == [r for r in body if r[2].startswith("DPIVAE")]
+    print(f"transfer resumed on the same output (--skip_baselines): "
+          f"{n_steps2} batched steps, launches {launched2}, DPIVAE rows "
+          f"{'identical' if same else 'DIFFERENT'}; {wall2:.2f} s; stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in timings2.items()))
+    if n_steps2 or launched2 != (0, 0) or not same:
+        failures.append("transfer: the resumed call trained, launched or "
+                        "changed rows")
+    _, rows3, _, timings3, n_steps3, launched3, wall3 = calls[2]
+    body3 = rows3[1:]
+    key = lambda r: tuple(r[:3])
+    by_key = {key(r): r for r in body}
+    finite3 = all(math.isfinite(float(v)) for r in body3 for v in r[3:])
+    same3 = [r for r in body3 if r[2].startswith("DPIVAE")] == [
+        r for r in body if r[2].startswith("DPIVAE")]
+    lin_gap = max(abs(float(a) - float(b)) for r in body3 if r[2] == "LIN"
+                  for a, b in zip(r[3:], by_key[key(r)][3:]))
+    gpr = {name: [float(r[3]) for r in rows_ if r[2] == "GPR"]
+           for name, rows_ in (("sklearn", body3), ("jax", body))}
+    print(f"transfer resumed with the default --baselines sklearn: "
+          f"{n_steps3} batched steps, launches {launched3}, {len(body3)} rows "
+          f"{'finite' if finite3 else 'NOT FINITE'}, DPIVAE rows "
+          f"{'identical' if same3 else 'DIFFERENT'}, LIN rows vs --baselines "
+          f"jax max_abs_err {lin_gap:.3e} (atol 1e-4); baselines "
+          f"{timings3.get('baselines', float('nan')):.3f} s, {wall3:.2f} s "
+          f"in all; GPR mean R² sklearn (float64 L-BFGS-B) " + ", ".join(
+              f"{k} {np.mean(v):.3f} ± {np.std(v, ddof=1):.3f}"
+              for k, v in gpr.items())
+          + f" (BASELINE.md {TRANSFER_R2_REFERENCE['GPR']})")
+    if (n_steps3 or launched3 != (0, 0) or not same3 or not finite3
+            or len(body3) != want_rows or not lin_gap <= 1e-4):
+        failures.append("transfer: the default-baselines call trained, "
+                        "launched, changed DPIVAE rows or LIN rows, or "
+                        "wrote rows missing or not finite")
+
+    model, params = member_model(cfg_a, case, run.results["DPIVAE-A"], member,
+                                 data_train=data_train)
+    x, c = (a[member] for a in run.data[2][:2])
+    live = Predictor(model, params, member_config(cfg_a),
+                     outputs=("y", "zx"), device="cuda")
+    err = _compare("member artifact vs member_model's Predictor",
+                   served(x, c, seed=SEED), live(x, c, seed=SEED), failures)
+    print(f"export_member_predictor, member {member} of the 'DPIVAE-A' grid: "
+          f"y and zx at {x.shape[0]} points x {cfg_a.n_mc_test} MC vs "
+          f"member_model's Predictor max_abs_err {err:.3e} (rtol {RTOL} atol "
+          f"{ATOL}); sidecar lambda_g0 {served.meta['lambda_g0']}")
+
+    # The same 24 "DPIVAE-A" datasets through the member-batched kernels
+    dtr, dva = run.data[0], run.data[1]
+    base = cfg_a.replace(n_iter=N_ITER_TRANSFER_KERNEL, patience=10**9)
+    lambdas = [base.lambda_g0] * n_members
+    chunk = auto_chunk_size(n_members, member_config(base), case, "cuda")
+    n_chunks = -(-n_members // chunk)
+    results, times, counts = {}, {}, {}
+    for name, use_pallas in (("auto", "auto"), ("kernel", True)):
+        cfg = base.replace(use_pallas=use_pallas)
+        train_sweep_data(cfg.replace(n_iter=N_ITER_WARM), case, lambdas, dtr,
+                         dva, seed=SEED + 1, device="cuda")
+        torch.cuda.synchronize()
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        results[name] = train_sweep_data(cfg, case, lambdas, dtr, dva,
+                                         seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts[name] = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    n = N_ITER_TRANSFER_KERNEL
+    want = {"auto": (0, 0),
+            "kernel": (n_chunks * (n + n // base.val_freq), n_chunks * n)}
+    for name in results:
+        logs = results[name].logs
+        print(f"transfer grid bridge / 'DPIVAE-A' (P model), use_pallas "
+              f"{'auto' if name == 'auto' else True} ({card}): {n_members} "
+              f"members in {n_chunks} chunk(s) of {chunk} x {n} steps in "
+              f"{times[name]:.2f} s (warm): {n_members * n / times[name]:.1f} "
+              f"member-steps/s; launches {counts[name]} (expected "
+              f"{want[name]})")
+        if counts[name] != want[name]:
+            failures.append(f"transfer grid ({name}): launches "
+                            f"{counts[name]}, expected {want[name]}")
+        if not (torch.isfinite(logs.train[logs.train_active]).all()
+                and torch.isfinite(logs.val[logs.val_active]).all()):
+            failures.append(f"transfer grid ({name}): a log row is not "
+                            f"finite")
+    kernel_rows = results["kernel"].logs.train[:, :N_ROWS_COMPARED]
+    auto_rows = results["auto"].logs.train[:, :N_ROWS_COMPARED]
+    worst = float((kernel_rows - auto_rows).abs().max())
+    print(f"transfer grid: use_pallas=True vs 'auto' first {N_ROWS_COMPARED} "
+          f"rows of all members max_abs_err {worst:.3e} (rtol {TRAIN_TOL} "
+          f"atol {TRAIN_TOL})")
+    if not torch.allclose(kernel_rows, auto_rows, rtol=TRAIN_TOL,
+                          atol=TRAIN_TOL):
+        failures.append("transfer grid: use_pallas=True and 'auto' disagree")
+    m = n_members // 3
+    cfg1 = base.replace(use_pallas=True, n_iter=N_ROWS_COMPARED)
+    g = member_generators(SEED, [m], "cuda")[0]
+    p0 = make_template_model(cfg1, case, device="cuda").init(g, device="cuda")
+    member_data = [tuple(a[m] for a in d[:3]) for d in (dtr, dva)]
+    single_model = setup_model(cfg1, case, member_data[0], device="cuda")
+    _, single = train_model(cfg1, single_model, case, *member_data, params=p0,
+                            generator=g, device="cuda")
+    worst = float((results["kernel"].logs.train[m, :N_ROWS_COMPARED]
+                   - single.train).abs().max())
+    print(f"transfer grid member {m} vs a single train_model run of its data, "
+          f"init and generator: first {N_ROWS_COMPARED} rows max_abs_err "
+          f"{worst:.3e} (rtol {TRAIN_TOL} atol {TRAIN_TOL})")
+    if not torch.allclose(results["kernel"].logs.train[m, :N_ROWS_COMPARED],
+                          single.train, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        failures.append("transfer grid: a member disagrees with its single "
+                        "run")
+    _profile_sweep_step(base.replace(use_pallas=True), case, lambdas,
+                        data=(dtr, dva))
+    return tuple(a + b for a, b in zip(total, counts["kernel"])), {
+        k: n_members * n / t for k, t in times.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1430,8 +1859,8 @@ def main() -> int:
 
     # The main path of the first slices: simple_beam / "dpivae" (S model,
     # 4 -> 128 -> 32).
-    serve_launches, req_ms, req_plain_ms, predictor, request = _serving(
-        ops, failures, "simple_beam", "dpivae")
+    (serve_launches, req_ms, req_plain_ms, predictor, request,
+     serve_setup) = _serving(ops, failures, "simple_beam", "dpivae")
     print(f"per request ({card}): kernel model {req_ms:.3f} ms, "
           f"plain model {req_plain_ms:.3f} ms "
           f"(warm median of {N_TIMED_REQUESTS})")
@@ -1446,7 +1875,7 @@ def main() -> int:
     # This slice's paths (8 -> 128 -> 64): bridge / "DPIVAE-A" (P model,
     # surrogate partial physics, a physical covariate) serving and
     # training, and damped_oscillator / "dpivae" (S model) serving.
-    b_launches, b_req_ms, b_plain_ms, b_predictor, b_request = _serving(
+    b_launches, b_req_ms, b_plain_ms, b_predictor, b_request, _ = _serving(
         ops, failures, "bridge", "DPIVAE-A")
     print(f"per request bridge / 'DPIVAE-A' ({card}): kernel model "
           f"{b_req_ms:.3f} ms, plain model {b_plain_ms:.3f} ms")
@@ -1457,7 +1886,7 @@ def main() -> int:
     print(f"training steps/s bridge / 'DPIVAE-A' ({card}): kernel model "
           f"{b_steps_s['kernel']:.1f}, plain model {b_steps_s['plain']:.1f} "
           f"(n_iter {N_ITER_BRIDGE})")
-    o_launches, o_req_ms, o_plain_ms, _, _ = _serving(
+    o_launches, o_req_ms, o_plain_ms, _, _, _ = _serving(
         ops, failures, "damped_oscillator", "dpivae")
     print(f"per request damped_oscillator / 'dpivae' ({card}): kernel "
           f"model {o_req_ms:.3f} ms, plain model {o_plain_ms:.3f} ms")
@@ -1477,19 +1906,29 @@ def main() -> int:
           f"{N_ITER_SWEEP} steps)")
     y_fwd, y_hidden = _study(ops, failures, card)
 
+    # This slice's paths: the serving artifact, then the transfer study
+    # (bridge, both presets, 24 members each) and its use_pallas=True grid.
+    a_fwd = _artifact(ops, failures, card, serve_setup, request)
+    (t_fwd, t_hidden), transfer_steps = _transfer(ops, failures, card)
+    print(f"transfer grid member-steps/s ({card}): use_pallas 'auto' "
+          f"(plain) {transfer_steps['auto']:.1f}, use_pallas=True (kernels) "
+          f"{transfer_steps['kernel']:.1f} ({TRANSFER_RUNS * 4} members x "
+          f"{N_ITER_TRANSFER_KERNEL} steps)")
+
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
-                 + o_launches + s_fwd + d_fwd + w_fwd + y_fwd)
+                 + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd)
     hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
-                    + w_hidden + y_hidden)
+                    + w_hidden + y_hidden + t_hidden)
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
           f"{serve_launches} + training {fwd_launches}, bridge serving "
           f"{b_launches} + training {b_fwd}, damped_oscillator serving "
           f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd}, "
-          f"sweep {w_fwd} (member-batched), study {y_fwd} = {fwd_total}; "
-          f"fused_mlp_hidden simple_beam training {hidden_launches} + "
-          f"bridge training {b_hidden} + single run {s_hidden} + remat and "
-          f"bf16 {d_hidden} + sweep {w_hidden} + study {y_hidden} = "
-          f"{hidden_total}")
+          f"sweep {w_fwd} (member-batched), study {y_fwd}, artifact phase "
+          f"{a_fwd} (the live kernel Predictor), transfer {t_fwd} "
+          f"(member-batched) = {fwd_total}; fused_mlp_hidden simple_beam "
+          f"training {hidden_launches} + bridge training {b_hidden} + single "
+          f"run {s_hidden} + remat and bf16 {d_hidden} + sweep {w_hidden} + "
+          f"study {y_hidden} + transfer {t_hidden} = {hidden_total}")
 
     if failures:
         for f in failures:

@@ -19,10 +19,14 @@ against; module names mirror it so each counterpart is easy to find:
   grouped Adam, ``train_model`` and checkpoints (dpivae_tpu/train/).
 - ``dpivae_tpu_torch.eval``     — the VAE's test metrics, the LIN/GPR/MLP
   baselines and the disentanglement probes (dpivae_tpu/eval/).
-- ``dpivae_tpu_torch.serving``  — the MC-posterior predictor
-  (dpivae_tpu/serving.py).
-- ``dpivae_tpu_torch.scripts``  — ``single_run``, the single-run program
-  (scripts/0_single_run.py).
+- ``dpivae_tpu_torch.serving``  — the MC-posterior predictor and its
+  ``torch.export`` serving artifact (dpivae_tpu/serving.py).
+- ``dpivae_tpu_torch.sweep``    — member-batched sweeps
+  (dpivae_tpu/sweep/).
+- ``dpivae_tpu_torch.scripts``  — ``single_run``,
+  ``disentanglement_metric`` and ``regression_comparison``, the
+  programs of scripts/0_single_run.py, 1_disentanglement_metric.py and
+  2_regression_comparison.py.
 - ``dpivae_tpu_torch.convert``  — JAX params pytree and fitted scalers ->
   this package's.
 

@@ -63,8 +63,16 @@ def device_constants(copies: Dict, arrays: Sequence[np.ndarray],
     a copy from host memory on every call would make each call wait for
     the device. The copies are made outside inference mode, so that a
     first call under ``torch.inference_mode`` leaves tensors that autograd
-    can still use."""
+    can still use.
+
+    Under a trace (``torch.export``, ``torch.compile``) nothing is cached
+    and the constants are made anew: there they are the tracer's own
+    tensors, which become constants of the traced program and would fail
+    every later eager call if they were kept."""
     dtype = like.dtype if dtype is None else dtype
+    if torch.compiler.is_compiling():
+        return tuple(torch.as_tensor(a, dtype=dtype, device=like.device)
+                     for a in arrays)
     key = (like.device, dtype)
     if key not in copies:
         with torch.inference_mode(False):

@@ -3,6 +3,7 @@ disentanglement metric (counterpart of dpivae_tpu/eval/)."""
 
 from dpivae_tpu_torch.eval.baselines import (  # noqa: F401
     fit_gpr_batched,
+    fit_gpr_lbfgsb,
     fit_lin_batched,
     fit_mlp_baseline_batched,
     run_comparison_batched,

@@ -18,6 +18,13 @@ Each family fits every member at once, in f32 on one device:
   Cholesky factorisation (``cholesky_ex``) makes the objective and its
   gradient NaN, as in JAX, and a member whose optimum is not finite or no
   better than the start falls back to the start.
+- ``fit_gpr_lbfgsb``: the same GPR fitted as scikit-learn's
+  ``GaussianProcessRegressor(RBF() + WhiteKernel())`` fits it, one member
+  at a time: float64, scikit-learn's alpha of 1e-10 on the diagonal, and
+  scipy's L-BFGS-B within the log-bounds from (0, 0), the marginal
+  likelihood and its gradient (autograd) on the device. ``run_comparison``
+  uses it; the batched fit misses scikit-learn's optimum on folds where
+  the clamped float32 BFGS stops early.
 - ``fit_mlp_baseline_batched``: MLP(64, 64) with ReLU, Glorot-uniform init,
   Adam (optax's update), minibatches of 200 drawn with replacement and
   shared by the members, L2 alpha 1e-4, a fixed epoch count; targets are
@@ -45,6 +52,7 @@ _LOG_LB = math.log(1e-5)
 _LOG_UB = math.log(1e5)
 # scikit-learn's alpha=1e-10 jitter, raised to be safe in f32
 _JITTER = 1e-6
+_SKLEARN_ALPHA = 1e-10
 _GTOL = 1e-5
 _BFGS_MAXITER = 200
 _LINE_SEARCH_MAXITER = 10
@@ -361,6 +369,59 @@ def fit_gpr_batched(X_tr, Y_tr, X_te):
     return pred, torch.exp(theta)
 
 
+def fit_gpr_lbfgsb(X_tr, Y_tr, X_te):
+    """GPR(RBF + White) fit and predict per member as scikit-learn fits it
+    (float64, alpha 1e-10, L-BFGS-B within the log-bounds), one member at
+    a time; the objective runs on the tensors' device.
+
+    Shapes: X_tr (M, N, D), Y_tr (M, N, Q), X_te (M, T, D) -> float64
+    predictions (M, T, Q) and the kernel parameters (M, 2) as
+    (length_scale, noise_level). Raises, as scikit-learn does, if the
+    fitted kernel matrix is not positive definite."""
+    from scipy.optimize import minimize
+
+    preds, kparams = [], []
+    for X, Y, Xs in zip(*(a.to(torch.float64) for a in (X_tr, Y_tr, X_te))):
+        n, q = Y.shape
+        eye = torch.eye(n, dtype=X.dtype, device=X.device)
+        # Squared distances by differences, as scipy's pdist takes them
+        d2 = torch.cdist(X, X, compute_mode="donot_use_mm_for_euclid_dist")
+        d2 = d2 * d2
+
+        def kernel(theta):
+            ls, noise = torch.exp(theta[0]), torch.exp(theta[1])
+            return (torch.exp(-0.5 * d2 / (ls * ls))
+                    + (noise + _SKLEARN_ALPHA) * eye)
+
+        def objective(theta_np):
+            theta = torch.tensor(theta_np, dtype=X.dtype, device=X.device,
+                                 requires_grad=True)
+            with torch.enable_grad():
+                L, info = torch.linalg.cholesky_ex(kernel(theta))
+                if int(info) != 0:
+                    # scikit-learn's LinAlgError branch: -inf likelihood
+                    return math.inf, np.zeros(2)
+                alpha = torch.cholesky_solve(Y, L)
+                nlml = (0.5 * torch.sum(Y * alpha)
+                        + q * torch.sum(torch.log(torch.diagonal(L)))
+                        + 0.5 * n * q * math.log(2.0 * math.pi))
+                (grad,) = torch.autograd.grad(nlml, theta)
+            return float(nlml.detach()), grad.cpu().numpy()
+
+        res = minimize(objective, np.zeros(2), method="L-BFGS-B", jac=True,
+                       bounds=[(_LOG_LB, _LOG_UB)] * 2)
+        theta = torch.tensor(res.x, dtype=X.dtype, device=X.device)
+        with torch.no_grad():
+            L = torch.linalg.cholesky(kernel(theta))
+            ls = torch.exp(theta[0])
+            Ks = torch.exp(-0.5 * torch.cdist(
+                Xs, X, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+                / (ls * ls))
+            preds.append(Ks @ torch.cholesky_solve(Y, L))
+        kparams.append(torch.exp(theta))
+    return torch.stack(preds), torch.stack(kparams)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 
@@ -468,6 +529,7 @@ def run_comparison_batched(
     models: Tuple[str, ...] = ("LIN", "GPR", "MLP"),
     mlp_kwargs: Optional[dict] = None,
     device: DeviceLike = None,
+    gpr: str = "batched",
 ) -> Tuple[List[Dict[str, dict]], List[Dict[str, np.ndarray]]]:
     """Every member's comparison against the baselines, on ``device``
     (None means CUDA).
@@ -475,8 +537,13 @@ def run_comparison_batched(
     ``data_*`` are member-stacked (x, c, y, ...) of shape (M, N, d); the
     features are [x ‖ c] standardized by each member's train moments.
     Returns per-member ``(metrics, predictions)`` dict lists in member
-    order; ``generator`` feeds the MLP.
+    order; ``generator`` feeds the MLP. ``gpr`` picks the GPR fit:
+    "batched" (``fit_gpr_batched``, every member at once in float32) or
+    "lbfgsb" (``fit_gpr_lbfgsb``, scikit-learn's fit, member by member).
     """
+    gpr_fits = {"batched": fit_gpr_batched, "lbfgsb": fit_gpr_lbfgsb}
+    if gpr not in gpr_fits:
+        raise ValueError(f"Unknown GPR fit {gpr!r}; have {sorted(gpr_fits)}")
     device = resolve_device(device)
     x_tr, c_tr, y_tr = (_as_f32(a, device) for a in data_train[:3])
     x_te, c_te, y_te = (_as_f32(a, device) for a in data_test[:3])
@@ -488,7 +555,7 @@ def run_comparison_batched(
         if name == "LIN":
             pred = fit_lin_batched(X_tr, y_tr, X_te)
         elif name == "GPR":
-            pred, _ = fit_gpr_batched(X_tr, y_tr, X_te)
+            pred, _ = gpr_fits[gpr](X_tr, y_tr, X_te)
         elif name == "MLP":
             pred = fit_mlp_baseline_batched(X_tr, y_tr, X_te,
                                             generator=generator,

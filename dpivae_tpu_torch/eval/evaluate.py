@@ -104,7 +104,9 @@ def run_comparison(
 ) -> Tuple[Dict[str, dict], Dict[str, np.ndarray]]:
     """The baselines LIN, GPR(RBF + White) and MLP(64, 64) on [x ‖ c]
     standardized by the train moments -> y, on ``device`` (None means
-    CUDA): ``run_comparison_batched`` with one member. Returns (metrics,
+    CUDA): ``run_comparison_batched`` with one member, its GPR fitted as
+    scikit-learn fits it (float64, L-BFGS-B: ``fit_gpr_lbfgsb``), as the
+    JAX package's scikit-learn ``run_comparison`` does. Returns (metrics,
     predictions) keyed by baseline."""
     del case  # the features and targets come from the data alone
     if np.shape(data_train[0])[0] != config.n_train:
@@ -117,7 +119,7 @@ def run_comparison(
         [None] for a in data[:3])
     metrics, preds = run_comparison_batched(
         one(data_train), one(data_test), generator=generator,
-        models=tuple(models), device=device)
+        models=tuple(models), device=device, gpr="lbfgsb")
     return metrics[0], preds[0]
 
 

@@ -47,7 +47,7 @@ from dpivae_tpu_torch.ops.mvn import mvn_log_prob
 from dpivae_tpu_torch.utils import (
     GAUSSIAN_CONST,
     DeviceLike,
-    randn,
+    draw_normals,
     resolve_device,
 )
 from dpivae_tpu_torch.utils.distributions import MarginalDistribution
@@ -60,6 +60,9 @@ DECODE_PARTS = ("xh_p", "xh_d", "c", "y")
 _SLOT_PARTS = {0: ("xh_p", "xh_d"), 1: ("xh_p",), 2: ("xh_d",), 3: ("c",),
                4: ("y",)}
 _COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+# (slot, noise name, model width) of ``sample``'s observation noise, in
+# the order it is drawn.
+OBSERVATION_NOISE = ((0, "x", "nd_x"), (3, "c", "nd_c"), (4, "y", "nd_y"))
 
 
 def _normal_log_prob(x, loc, scale):
@@ -75,11 +78,9 @@ def _mc_sum(log_prob):
     return torch.sum(torch.sum(log_prob, dim=-1), dim=0)
 
 
-def _normal(noise: Noise, name: str, shape, generator, like: torch.Tensor):
-    """Standard normals of ``shape``: ``noise[name]`` when a noise mapping is
-    given, else drawn from ``generator``."""
-    if noise is None:
-        return randn(shape, generator, like.device, like.dtype)
+def _normal(noise: Noise, name: str, shape, like: torch.Tensor):
+    """``noise[name]``, checked to have ``shape``, on ``like``'s device and
+    dtype."""
     eps = noise[name]
     if tuple(eps.shape) != tuple(shape):
         raise ValueError(
@@ -274,6 +275,23 @@ class DPIVAE:
         loc_y, tril_y = params.prior_net_y(y_t)
         return loc_c, tril_c, loc_y, tril_y
 
+    def noise_draws(self, cond: bool = False,
+                    observations: bool = True) -> Tuple[Tuple[str, int], ...]:
+        """What the model draws from a generator, in order, as (noise name,
+        width), each draw (n, batch, width): the encoder's one joint draw
+        (S) or the x, c and y encoders' draws in turn (P), all "z";
+        "z_prior" with ``cond``; with ``observations``, ``sample``'s
+        observation noise "x", "c", "y" of every slot. ``draw_normals``
+        draws them; a ``noise`` mapping of the same names reproduces a
+        generator's draws."""
+        z = ((self.nz_x + self.nz_c + self.nz_y,) if self.model_type == "S"
+             else (self.nz_x, self.nz_c, self.nz_y))
+        return (tuple(("z", w) for w in z)
+                + ((("z_prior", self.nz_c),) if cond else ())
+                + (tuple((name, getattr(self, width))
+                         for _, name, width in OBSERVATION_NOISE)
+                   if observations else ()))
+
     def encode(self, params: DPIVAEParams, x, n: int = 1, *,
                generator: Optional[torch.Generator] = None,
                eps: Optional[torch.Tensor] = None):
@@ -286,26 +304,27 @@ class DPIVAE:
         standard normals, in that order, as the JAX package splits its key.
         """
         nz_x, nz_c = self.nz_x, self.nz_c
+        if eps is None:
+            eps = draw_normals(self.noise_draws(observations=False),
+                               generator, (n, *x.shape[:-1]), x.device)["z"]
         if self.model_type == "S":
             loc, tril = params.encoder(x)
             z, dens_z = gaussian_encoder_sample(
-                loc, tril, n, generator=generator, eps=eps,
+                loc, tril, n, eps=eps,
                 output_transform=self.output_transform_zx,
             )
             return (z[..., :nz_x], z[..., nz_x: nz_x + nz_c],
                     z[..., nz_x + nz_c:], dens_z)
-        eps_x = eps_c = eps_y = None
-        if eps is not None:
-            eps_x, eps_c, eps_y = torch.split(
-                eps, [nz_x, nz_c, self.nz_y], dim=-1)
+        eps_x, eps_c, eps_y = torch.split(eps, [nz_x, nz_c, self.nz_y],
+                                          dim=-1)
         zx, dens_zx = gaussian_encoder_sample(
-            *params.encoder(x), n, generator=generator, eps=eps_x,
+            *params.encoder(x), n, eps=eps_x,
             output_transform=self.output_transform_zx,
         )
-        zc, dens_zc = gaussian_encoder_sample(
-            *params.encoder_c(x), n, generator=generator, eps=eps_c)
-        zy, dens_zy = gaussian_encoder_sample(
-            *params.encoder_y(x), n, generator=generator, eps=eps_y)
+        zc, dens_zc = gaussian_encoder_sample(*params.encoder_c(x), n,
+                                              eps=eps_c)
+        zy, dens_zy = gaussian_encoder_sample(*params.encoder_y(x), n,
+                                              eps=eps_y)
         return zx, zc, zy, dens_zx + dens_zc + dens_zy
 
     def decode(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha=None,
@@ -362,15 +381,15 @@ class DPIVAE:
         """Encode half of ``forward``: latents, their density, and the
         decoder_x input with the physical covariates concatenated."""
         x_t, c_t, _ = self.transform_inputs(x=x, c=c)
-        eps = None if noise is None else noise["z"]
-        zx, zc, zy, dens_z = self.encode(params, x_t, n=n,
-                                         generator=generator, eps=eps)
+        if noise is None:
+            noise = draw_normals(self.noise_draws(cond, observations=False),
+                                 generator, (n, *x.shape[:-1]), x.device)
+        zx, zc, zy, dens_z = self.encode(params, x_t, n=n, eps=noise["z"])
 
         if cond:
             loc_c, tril_c = params.prior_net_c(c_t)
-            eps_c = None if noise is None else noise["z_prior"]
             zc, _ = gaussian_encoder_sample(loc_c, tril_c, n,
-                                            generator=generator, eps=eps_c)
+                                            eps=noise["z_prior"])
 
         # Raw physical covariates concatenated to z_x, tiled over the MC
         # axis; idx_c_phys == () means no-op.
@@ -477,19 +496,20 @@ class DPIVAE:
         """
         slots = range(9) if slots is None else slots
         parts = {p for i in slots for p in _SLOT_PARTS.get(i, ())}
-        zx, zc, zy, dens_z, zx_in = self._encode_latents(
-            params, x, c, cond, n, generator=generator, noise=noise)
-        xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y = self.decode(
-            params, zx_in, zc, zy, grl_alpha=grl_alpha, parts=parts)
-        # The generator draws the observation noise for every slot, used
-        # or not, so that its stream does not depend on ``slots``; a noise
+        # The generator draws the observation noise of every slot, used or
+        # not, so that its stream does not depend on ``slots``; a noise
         # mapping needs only the slots' own.
         lead = (n, *x.shape[:-1])
-        eps = {name: _normal(noise, name, (*lead, width), generator, zx)
-               if noise is None or slot in slots else None
-               for slot, name, width in ((0, "x", self.nd_x),
-                                         (3, "c", self.nd_c),
-                                         (4, "y", self.nd_y))}
+        if noise is None:
+            noise = draw_normals(self.noise_draws(cond), generator, lead,
+                                 x.device)
+        zx, zc, zy, dens_z, zx_in = self._encode_latents(
+            params, x, c, cond, n, noise=noise)
+        xh_p, xh_d, ch, log_sigma_c, yh, log_sigma_y = self.decode(
+            params, zx_in, zc, zy, grl_alpha=grl_alpha, parts=parts)
+        eps = {name: _normal(noise, name, (*lead, getattr(self, width)), zx)
+               if slot in slots else None
+               for slot, name, width in OBSERVATION_NOISE}
         eps_x, eps_c, eps_y = eps["x"], eps["c"], eps["y"]
         x_sample = c_sample = y_sample = None
         if 0 in slots:

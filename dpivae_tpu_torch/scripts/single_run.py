@@ -7,9 +7,11 @@ without its plots):
         [--device cuda]
 
 Outputs: output/<name>/settings/args.json (the config), metrics/ (the
-training logs as CSVs: train.csv, val.csv and one per series) and
+training logs as CSVs: train.csv, val.csv and one per series),
 models/model (``train.checkpoint.save_model``; restore it with
-``load_model(path, case)``). The R², MSE and MAE of LIN, GPR, MLP and the
+``load_model(path, case)``) and, with --export_serving,
+models/predictor.pt2 and its .meta.json (``serving.save_predictor``;
+serve it with ``serving.load_predictor``). The R², MSE and MAE of LIN, GPR, MLP and the
 VAE on the test split are printed, with the wall time of each stage.
 
 The data come from the port's ``sample_response``, from generators on the
@@ -21,8 +23,8 @@ from the JAX program's at the same seed.
 
 It runs on the CUDA device unless --device says otherwise (--device cpu
 runs it on the CPU). Not ported: --n_devices above 1 (data parallelism,
-ROADMAP.md queue 1, item 11), --export_serving (the serving artifact,
-item 10) and the figures (viz/, item 10): asking for them raises.
+ROADMAP.md queue 1, item 11) and the figures (viz/, item 10): asking for
+them raises.
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_devices", type=int, default=1,
                         help="data-parallel devices; only 1 is ported")
     parser.add_argument("--export_serving", action="store_true",
-                        help="the serving artifact: not ported yet, raises")
+                        help="also write models/predictor.pt2, the serving "
+                             "artifact (torch.export), with its .meta.json")
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: cuda)")
     return parser
@@ -88,9 +91,6 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
     if args.n_devices != 1:
         parser.error("--n_devices above 1 (data parallelism) is not ported "
                      "to dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 11)")
-    if args.export_serving:
-        parser.error("--export_serving (the serving artifact) is not ported "
-                     "to dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 10)")
     if args.plots:
         parser.error("the figures (viz/) are not ported to dpivae_tpu_torch "
                      "yet (ROADMAP.md, queue 1, item 10)")
@@ -98,6 +98,7 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
     from dpivae_tpu_torch.eval import evaluate_model, run_comparison
+    from dpivae_tpu_torch.serving import save_predictor
     from dpivae_tpu_torch.train import init_params, setup_model, train_model
     from dpivae_tpu_torch.train.checkpoint import save_model
     from dpivae_tpu_torch.utils import resolve_device
@@ -158,6 +159,11 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
     stage("csv", lambda: save_logs_csv(logs, paths["metrics"]))
     stage("save", lambda: save_model(os.path.join(paths["models"], "model"),
                                       model, params, cfg, case=case))
+    if args.export_serving:
+        paths["predictor"] = stage("export", lambda: save_predictor(
+            os.path.join(paths["models"], "predictor.pt2"), model, params,
+            cfg, case, cond=args.cond))
+        print(f"Serving artifact: {paths['predictor']} (+ .meta.json)")
 
     metrics, predictions = {}, {}
     for name in BASELINES:

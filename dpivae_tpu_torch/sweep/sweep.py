@@ -22,8 +22,7 @@ named by a digest of the sweep's identity, as in the JAX package
 another sweep's.
 
 Not ported: the device mesh (``mesh=`` raises; ROADMAP.md, queue 1,
-item 11) and ``export_member_predictor`` (the serving artifact, item 10).
-The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
+item 11). The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
 caches only warm or cache compiled programs; eager PyTorch compiles
 nothing, so they have no counterpart.
 """
@@ -195,12 +194,23 @@ def export_member(config: TrainConfig, case: Case, result, i: int,
     return model, params
 
 
-def export_member_predictor(*args, **kwargs):
-    """Not ported: the serving artifact (ROADMAP.md, queue 1, item 10)."""
-    raise NotImplementedError(
-        "export_member_predictor (the serving artifact) is not ported to "
-        "dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 10); export_member "
-        "writes a checkpoint that load_model restores")
+def export_member_predictor(config: TrainConfig, case: Case, result, i: int,
+                            path: str, data_train=None, **export_kwargs):
+    """Export sweep member ``i`` as a serving artifact
+    (``serving.save_predictor``): its predict path with its weights and
+    its scalers (fitted on its training data, replayed from its key or
+    ``data_train`` for a data sweep) baked in, loadable with no sweep,
+    model or case code. The member's λ replaces ``lambda_g0`` in the
+    sidecar's config (the GRL is the identity in the forward pass, so
+    predictions do not depend on it: this is provenance). Extra keyword
+    arguments (``outputs=``, ``cond=``, ``n=``) pass through to
+    ``save_predictor``. Returns the artifact path."""
+    from dpivae_tpu_torch.serving import save_predictor
+
+    model, params = member_model(config, case, result, i, data_train)
+    cfg_i = member_config(config).replace(
+        lambda_g0=float(result.lambdas[i]))
+    return save_predictor(path, model, params, cfg_i, case, **export_kwargs)
 
 
 # ----------------------------------------------------------------------

@@ -43,7 +43,12 @@ from dpivae_tpu_torch.train.optim import (
     make_optimizer,
 )
 from dpivae_tpu_torch.train.setup import make_template_model, setup_model
-from dpivae_tpu_torch.utils import DeviceLike, rand, randn, resolve_device
+from dpivae_tpu_torch.utils import (
+    DeviceLike,
+    draw_normals,
+    rand,
+    resolve_device,
+)
 from dpivae_tpu_torch.utils.annealing import make_schedule
 from dpivae_tpu_torch.utils.early_stopping import (
     early_stop_init,
@@ -308,13 +313,10 @@ def encoder_noise(model, generator: torch.Generator, n: int, batch: int,
                   device: torch.device) -> torch.Tensor:
     """The (n, batch, nz) encoder normals ``DPIVAE.encode`` draws from
     ``generator`` for ``n`` samples of ``batch`` points, drawn the same way
-    (one draw for the S model; the x, c and y encoders' draws in turn for
-    the P model), so that ``noise={"z": ...}`` reproduces them."""
-    if model.model_type == "S":
-        return randn((n, batch, model.nz_x + model.nz_c + model.nz_y),
-                     generator, device)
-    return torch.cat([randn((n, batch, d), generator, device)
-                      for d in (model.nz_x, model.nz_c, model.nz_y)], dim=-1)
+    (``DPIVAE.noise_draws``), so that ``noise={"z": ...}`` reproduces
+    them."""
+    return draw_normals(model.noise_draws(observations=False), generator,
+                        (n, batch), device)["z"]
 
 
 def stack_params(params) -> dict:

@@ -35,6 +35,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device(device)
 
 
+def draw_normals(draws, generator: Optional[torch.Generator], lead,
+                 device: torch.device) -> dict:
+    """Standard normals drawn from ``generator`` in the order of ``draws``,
+    a sequence of (name, width), each of shape (*lead, width); the draws of
+    one name are joined on the last axis. ``DPIVAE.noise_draws`` gives the
+    model's own order, and the result is its ``noise`` mapping."""
+    drawn = {}
+    for name, width in draws:
+        drawn.setdefault(name, []).append(
+            randn((*lead, width), generator, device))
+    return {name: parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            for name, parts in drawn.items()}
+
+
 def to_numpy(a) -> np.ndarray:
     """A tensor (read back from its device) or an array, as numpy."""
     if isinstance(a, torch.Tensor):

@@ -15,8 +15,12 @@ import torch
 from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.models.vae import DPIVAE
-from dpivae_tpu_torch.scripts import disentanglement_metric, single_run
-from dpivae_tpu_torch.serving import Predictor
+from dpivae_tpu_torch.scripts import (
+    disentanglement_metric,
+    regression_comparison,
+    single_run,
+)
+from dpivae_tpu_torch.serving import Predictor, load_predictor
 from dpivae_tpu_torch.sweep import (
     train_hyper_sweep,
     train_sweep,
@@ -86,6 +90,11 @@ def _entry_points(tmp_path):
             tuple(a[None] for a in data[:3])),
         "disentanglement_metric CLI": lambda: disentanglement_metric.main(
             ["--n_iter", "2", "--n_runs", "1", "--output", str(tmp_path)]),
+        "regression_comparison CLI": lambda: regression_comparison.main(
+            ["--n_iter", "2", "--n_runs", "1", "--output", str(tmp_path)]),
+        # The device is resolved before the file is read.
+        "load_predictor": lambda: load_predictor(
+            str(tmp_path / "predictor.pt2")),
     }
 
 
@@ -93,7 +102,8 @@ def _entry_points(tmp_path):
     "sample_response", "setup_model", "DPIVAE.init", "init_params",
     "Predictor", "train_model", "P model init_params", "load_model",
     "single_run CLI", "train_sweep", "train_hyper_sweep", "train_sweep_data",
-    "disentanglement_metric CLI"])
+    "disentanglement_metric CLI", "regression_comparison CLI",
+    "load_predictor"])
 def test_entry_point_without_device_needs_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")

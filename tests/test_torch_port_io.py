@@ -347,7 +347,6 @@ def test_single_run_cli_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag, item", [
     (["--n_devices", "2"], "item 11"),
-    (["--export_serving"], "item 10"),
     (["--plots"], "item 10"),
     (["--preset", "nope"], "unknown preset"),
 ])

@@ -375,4 +375,4 @@ def test_marginal_distribution_matches_jax(which):
 
 def test_unknown_distribution_raises():
     with pytest.raises(ValueError, match="unknown distribution"):
-        dist.make_distribution("mixture", weights=[1.0], components=[])
+        dist.make_distribution("gamma", concentration=1.0, rate=1.0)

@@ -1,23 +1,36 @@
 """The port's member-batched training against the JAX package, on the CPU:
 each member of a sweep step against JAX's per-member ``jax.grad`` and
-optimizer update (a λ sweep and a hyperparameter sweep), the per-member
+optimizer update (a λ sweep and a hyperparameter sweep on simple_beam,
+and λ sweeps of the transfer study's bridge presets, the P model
+"DPIVAE-A" and the S model "DPIVAE-B"), the per-member
 gradient clip against ``optax.clip_by_global_norm``, and ``vmap(grad)``
 through ``FusedMLPFunction`` and the GRL against a per-member loop.
 
-Small sizes: 3 members, batch 16, 4 MC samples, n_train 64, at
-simple_beam/dpivae's full widths, the case of the single-run parity tests
+Small sizes: 3 members, batch 16, 4 MC samples, n_train 64, at the
+presets' full widths; simple_beam/dpivae is the case of the single-run
+parity tests
 (tests/test_torch_port_train.py holds its steps to the same tolerances;
 damped_oscillator's members are held against the port's single runs in
 tests/test_torch_sweep_io.py and on the card).
 Each member's data are JAX's ``member_datasets`` of its key, its init
 ``template.init(k_init)``, carried over by ``params_from_jax``; the
-encoder noise is JAX's, replayed (as in tests/test_torch_port_train.py).
+encoder noise is JAX's, replayed (as in tests/test_torch_port_train.py;
+for the P model the three encoders' draws, as in
+tests/test_torch_port_pmodel_train.py).
 No JAX sweep runs here (it compiles for tens of seconds): the JAX side of
 a member's step is ``jax.grad`` of its loss and its optimizer's update.
 
 Tolerances as in tests/test_torch_port_train.py: losses rtol/atol 1e-4,
 gradients rtol 5e-4 / atol 1e-6, params after three Adam steps rtol/atol
-1e-5.
+1e-5, every element on simple_beam. On bridge an element whose first
+gradient is nonzero but at most 1e-7 (a few cancelled sums, about Adam's
+eps of 1e-8) is held to Adam's own step instead: there the normalised
+first update g / (|g| + eps) turns last-bit differences of g into
+differences of the order of the learning rate (bridge / "DPIVAE-B": one
+weight of 1,280, g 6.8e-9 here and 8.2e-9 in JAX, 4.8e-5 apart after the
+update). Each side moves such an element by at most its group's learning
+rate a step, so the two lie within 2 x steps x lr; these elements are
+counted, at most 1 % of a tensor or 2.
 """
 
 import jax
@@ -45,11 +58,15 @@ from dpivae_tpu_torch.train.train import MemberTrainer, stack_params
 
 CASE = "simple_beam"
 M, N_TRAIN, N_VAL, B, N = 3, 64, 32, 16, 4
-NZ = 6  # z_x, z_c, z_y 2 each
 LAMBDAS = np.array([-0.5, 1 / 128, 1.0], np.float32)
 LOSS_TOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-6
 PARAM_TOL = 1e-5
+# On bridge, nonzero first-step gradients at or below this are too close
+# to Adam's eps (1e-8) for the params after the update to be held to
+# PARAM_TOL; they are held to Adam's step bound.
+ADAM_SENSITIVE = 1e-7
+STEPS = 3
 HYPER = {
     "lr_e": [1e-3, 3e-3, 5e-4],
     "wd_dx": [0.0, 0.01, 0.05],
@@ -59,14 +76,14 @@ HYPER = {
 }
 
 
-def _configs(**over):
+def _configs(case_name=CASE, preset="dpivae", **over):
     over = dict(n_train=N_TRAIN, n_val=N_VAL, n_batch=B, n_mc_train=N,
                 n_mc_val=N, use_seed=True, use_pallas=True, **over)
-    jcase = jax_get_case(CASE)
-    jcfg = JaxTrainConfig().with_preset(jcase.presets["dpivae"]).replace(
+    jcase = jax_get_case(case_name)
+    jcfg = JaxTrainConfig().with_preset(jcase.presets[preset]).replace(
         **over)
-    case = get_case(CASE)
-    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(**over)
+    case = get_case(case_name)
+    cfg = TrainConfig().with_preset(case.presets[preset]).replace(**over)
     return jcase, jcfg, case, cfg
 
 
@@ -90,10 +107,16 @@ def _members(jcase, jcfg, case, cfg):
     return jax_members, stack_params(params), stack(0), stack(1)
 
 
-def _replayed_eps(key, n, batch):
-    """The encoder normals JAX's DPIVAE.loss draws from ``key``."""
+def _replayed_eps(key, model, n, batch):
+    """The encoder normals JAX's DPIVAE.loss draws from ``key``: one joint
+    draw for S; for P one per encoder, joined x, c, y."""
     k_enc, _ = jax.random.split(key)
-    return np.asarray(jax.random.normal(k_enc, (n, batch, NZ)))
+    draw = lambda k, d: np.asarray(jax.random.normal(k, (n, batch, d)))
+    if model.model_type == "S":
+        return draw(k_enc, model.nz_x + model.nz_c + model.nz_y)
+    k_x, k_c, k_y = jax.random.split(k_enc, 3)
+    return np.concatenate([draw(k_x, model.nz_x), draw(k_c, model.nz_c),
+                           draw(k_y, model.nz_y)], -1)
 
 
 def _close(got, want, rtol, atol, msg=""):
@@ -102,14 +125,22 @@ def _close(got, want, rtol, atol, msg=""):
         np.asarray(want), rtol=rtol, atol=atol, err_msg=msg)
 
 
-@pytest.mark.parametrize("hyper", [False, True], ids=["lambda", "hyper"])
-def test_member_steps_match_jax(hyper):
+@pytest.mark.parametrize("case_name, preset, hyper", [
+    pytest.param(CASE, "dpivae", False, id="lambda"),
+    pytest.param(CASE, "dpivae", True, id="hyper"),
+    pytest.param("bridge", "DPIVAE-A", False, id="bridge-DPIVAE-A"),
+    pytest.param("bridge", "DPIVAE-B", False, id="bridge-DPIVAE-B"),
+])
+def test_member_steps_match_jax(case_name, preset, hyper):
     """Three steps of every member: loss and gradients at the first step,
     the log rows' loss at each, and the params after the third, against
     JAX's per-member grad and optimizer (with ``overlay`` for a hyper
-    sweep: lr, weight decay, β, α and the clip norm per member)."""
+    sweep: lr, weight decay, β, α and the clip norm per member). bridge's
+    P model covers the three encoder draws and the per-block optimizer
+    groups (lr_ex, lr_ec, lr_ey), both presets bridge's physical
+    covariate joined to z_x and the frozen-MLP physics under vmap."""
     over = dict(clip_gradients=True) if hyper else {}
-    jcase, jcfg, case, cfg = _configs(**over)
+    jcase, jcfg, case, cfg = _configs(case_name, preset, **over)
     jax_members, params, data_train, data_val = _members(jcase, jcfg, case,
                                                          cfg)
     hyper_cols = ({k: torch.tensor(v, dtype=torch.float32)
@@ -125,11 +156,12 @@ def test_member_steps_match_jax(hyper):
         states.append([tx, tx.init(jparams), jparams])
 
     rng = np.random.default_rng(4)
-    for step in range(3):
+    first_grads = []
+    for step in range(STEPS):
         idx = np.stack([rng.choice(N_TRAIN, B, replace=False)
                         for _ in range(M)])
         keys = [jax.random.PRNGKey(100 + 10 * m + step) for m in range(M)]
-        eps = np.stack([_replayed_eps(k, N, B) for k in keys])
+        eps = np.stack([_replayed_eps(k, run.template, N, B) for k in keys])
         seam = dict(batch_idx=torch.from_numpy(idx),
                     noise={"z": torch.from_numpy(eps)})
         if step == 0:
@@ -155,6 +187,7 @@ def test_member_steps_match_jax(hyper):
             if step == 0:
                 _close(comps[m, 0], value, LOSS_TOL, LOSS_TOL)
                 want = state_dict_from_jax(jax.tree.map(np.asarray, jgrads))
+                first_grads.append(want)
                 assert set(grads) == set(want)
                 for name, w in want.items():
                     _close(grads[name][m], w, GRAD_RTOL, GRAD_ATOL,
@@ -162,11 +195,23 @@ def test_member_steps_match_jax(hyper):
             updates, opt_state = tx.update(jgrads, opt_state, jparams)
             state[1:] = [opt_state,
                          jax.tree.map(lambda p, u: p + u, jparams, updates)]
+    # Each param's learning rate, from the optimizer's flat (M, P) layout
+    opt = run.optimizer
+    offsets = np.cumsum([0] + [run.params[k][0].numel() for k in opt.names])
+    start = dict(zip(opt.names, offsets[:-1]))
     for m, (_, _, jparams) in enumerate(states):
         want = state_dict_from_jax(jax.tree.map(np.asarray, jparams))
         for name, w in want.items():
-            _close(run.params[name][m], w, PARAM_TOL, PARAM_TOL,
+            got, w = run.params[name][m].numpy(), np.asarray(w)
+            g0 = np.abs(np.asarray(first_grads[m][name]))
+            near_eps = ((g0 > 0.0) & (g0 <= ADAM_SENSITIVE) if case_name ==
+                        "bridge" else np.zeros(w.shape, bool))
+            assert near_eps.sum() <= max(2, near_eps.size // 100), name
+            _close(got[~near_eps], w[~near_eps], PARAM_TOL, PARAM_TOL,
                    f"member {m} {name}")
+            lr = float(opt.lr[m, start[name]])
+            gap = np.abs(got[near_eps] - w[near_eps])
+            assert (gap <= 2 * STEPS * lr).all(), (name, gap.max(), lr)
         _close(rows[m, -1], np.exp(np.asarray(jparams["log_sigma_x"])),
                1e-6, 0)
 
