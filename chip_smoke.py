@@ -14,8 +14,8 @@ Phases; any failure exits non-zero before the result line:
    the fused-MLP forward kernel at the serving shape (512 requests x 512
    MC samples = 262,144 rows x (4 -> 128 -> 32)), the validation shape
    (512 points x 64 MC), the training shape (64 x 16 MC), the same three
-   at the damped_oscillator and bridge widths (8 -> 128 -> 64), a ragged
-   row count, the row counts on either side of the forward's switch from
+   at the damped_oscillator and bridge widths (8 -> 128 -> 64), the
+   figures' decodes (2,000 rows at both widths), a ragged row count, the row counts on either side of the forward's switch from
    its split to its staged path, and hidden 256, 512 and 1,024, each with
    two least-time bounds (layer 2 in f32 on the CUDA cores, and on the
    TF32 tensor cores in three passes) and, at the serving, validation and
@@ -136,7 +136,18 @@ Phases; any failure exits non-zero before the result line:
    n_iter / val_freq times and its hidden kernel n_iter times, the first
    10 rows of the two agree, a member's equal its single train_model run;
    member-steps/s of both and a profile of one batched P-model step.
-13. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+13. The figures' data (``viz.visualization``) on the card, at the
+   config's n_plot 2,000 and n_interp 5, nothing cut: every figure that
+   ``single_run --plots`` draws from device data, for phase 8's trained
+   simple_beam / "dpivae" model ("auto", so the kernel), then the two
+   prediction figures of bridge / "DPIVAE-A" (P model, cond, random
+   weights, use_pallas=True). Each figure's data are computed with the
+   model, counted and timed, then with a use_pallas=False copy under the
+   same seeds and held against it; the prediction figures launch the
+   forward once per traversal point (4 factors x 5 points x 2 figures = 40
+   for simple_beam), the posterior and prior figures never. Nothing is
+   drawn: the card's host has no matplotlib.
+14. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -206,6 +217,10 @@ SHAPES = {
     "validation8": (32_768, 8, 128, 64),
     "training8": (1_024, 8, 128, 64),
     "ragged": (1_000, 4, 128, 32),
+    # the figures' decodes: the config's n_plot of 2,000 responses per
+    # traversal point, at simple_beam's and at bridge's widths
+    "figures": (2_000, 4, 128, 32),
+    "figures8": (2_000, 8, 128, 64),
     # the last row count of the forward's split path, and the first of
     # its staged path
     "split_edge": (8_192, 4, 128, 32),
@@ -227,7 +242,7 @@ F64_SHAPES = ((65_536, 4, 256, 32), (32_768, 4, 512, 32),
               (32_768, 4, 1_024, 32), (4_096, 8, 1_024, 64))
 # Forward shapes timed beside the cuBLASLt pair.
 PAIR_SHAPES = ("serving", "validation", "training", "serving8",
-               "validation8", "training8")
+               "validation8", "training8", "figures", "figures8")
 # (rows, d_in, d_hidden) of the hidden-recompute kernel; "training" and
 # "training8" are the training paths' shapes.
 HIDDEN_SHAPES = {
@@ -1025,6 +1040,121 @@ def _single_run(ops, failures, card):
                 np.isfinite(r[2]) for r in rows):
             failures.append(f"disentanglement_metric ({regressor}): rows "
                             f"missing or not finite")
+    return launches, run
+
+
+def _figure_specs(params, cfg, case, cond, predictions_only):
+    """Each figure that ``single_run --plots`` draws from data on the
+    device, as figure name -> (forward launches expected, a function of
+    the model that computes the figure's data as a list of tensors), with
+    the seeds ``single_run`` gives them; only the two prediction figures
+    when ``predictions_only``."""
+    from dpivae_tpu_torch.viz import visualization as viz
+
+    n_plot, n_interp = cfg.n_plot, cfg.n_interp
+    factors = range(len(case.factors))
+    seed = cfg.seed + 5
+
+    def pred(model, idx, key):
+        return list(viz.pred_decomposition(
+            model, params, cfg, case, idx, n_interp, n_plot, cond, key,
+            device="cuda")[0].values())
+
+    def post(model, indices):
+        return [t for idx in indices for t in viz.marginal_post_data(
+            model, params, cfg, case, idx, n_interp, n_plot, cond, seed,
+            device="cuda")[0]]
+
+    specs = {f"fig_pred_x_{idx}": (n_interp, lambda m, idx=idx: pred(
+        m, idx, seed)) for idx in factors}
+    specs["fig_pred_interp_x"] = (n_interp * len(factors), lambda m: [
+        t for idx in factors for t in pred(m, idx, viz.fold_in(seed, idx))])
+    if predictions_only:
+        return specs
+    specs["fig_post_marginal_z"] = (0, lambda m: post(m, factors))
+    specs["fig_post_marginal_z_01"] = (0, lambda m: post(m, (0, 1)))
+    specs["fig_prior_marginal_z"] = (0, lambda m: [
+        t for idx in factors for t in viz.marginal_prior_data(
+            m, params, cfg, case, idx, n_interp, n_plot, seed,
+            device="cuda")[0]])
+    specs["fig_posterior_ground_truth"] = (0, lambda m: list(
+        viz.ground_truth_posterior_data(m, params, cfg, case, case.gt_dist(),
+                                        n_plot, cond, seed, device="cuda")))
+    return specs
+
+
+def _figure_data(ops, failures, card, what, model, params, cfg, case,
+                 cond=False, predictions_only=False):
+    """The figures' data on the card (phase 13): each figure's data from
+    ``model`` (counted and timed) and from a use_pallas=False copy of it
+    under the same seeds, held against each other. Returns the forward
+    launches of the kernel model's figures."""
+    plain = dataclasses.replace(model, use_pallas=False)
+    specs = _figure_specs(params, cfg, case, cond, predictions_only)
+    total, worst_all, rows = 0, 0.0, []
+    for name, (want_launches, fn) in specs.items():
+        torch.cuda.synchronize()
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        got = fn(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+        t0 = time.perf_counter()
+        want = fn(plain)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = all(torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+                 for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        total += launches[0]
+        worst_all = max(worst_all, worst)
+        rows.append(f"{name} {1e3 * wall:.1f} ms (plain {1e3 * plain_wall:.1f}"
+                    f" ms), launches {launches[0]}/{launches[1]}, max_abs_err "
+                    f"{worst:.3e}")
+        if launches != (want_launches, 0):
+            failures.append(f"figure data {what} {name}: launches {launches}, "
+                            f"expected ({want_launches}, 0)")
+        if not ok or not finite:
+            failures.append(f"figure data {what} {name}: kernel and plain "
+                            f"disagree or not finite")
+    print(f"figure data {what} ({card}; n_plot {cfg.n_plot}, n_interp "
+          f"{cfg.n_interp}; kernel model wall per figure, fused_mlp_fwd/"
+          f"hidden launches, max_abs_err vs use_pallas=False, rtol {RTOL} "
+          f"atol {ATOL}): " + "; ".join(rows))
+    print(f"figure data {what}: {total} forward launches in all, max_abs_err "
+          f"{worst_all:.3e}")
+    return total
+
+
+def _figures(ops, failures, card, run):
+    """Phase 13: every figure's data of the single run's trained
+    simple_beam / "dpivae" model ("auto": the kernel), then the
+    prediction figures' data of bridge / "DPIVAE-A" (P model, cond) with
+    random weights and use_pallas=True."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.train import init_params, setup_model
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    cfg = run.config
+    if (cfg.n_plot, cfg.n_interp) != (2_000, 5):
+        failures.append(f"figure data: n_plot {cfg.n_plot}, n_interp "
+                        f"{cfg.n_interp}, not the config's 2,000 and 5")
+    launches = _figure_data(ops, failures, card, "simple_beam / 'dpivae'",
+                            run.model, run.params, cfg, run.case)
+    case = get_case("bridge")
+    cfg = TrainConfig().with_preset(case.presets["DPIVAE-A"]).replace(
+        use_pallas=True, use_seed=True, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data = sample_response(case, gen, cfg.n_train, sample_dist=case.gt_dist(),
+                           device="cuda")
+    model = setup_model(cfg, case, data, device="cuda")
+    params = init_params(cfg, model, device="cuda")
+    launches += _figure_data(ops, failures, card, "bridge / 'DPIVAE-A'",
+                             model, params, cfg, case, cond=True,
+                             predictions_only=True)
     return launches
 
 
@@ -1893,7 +2023,7 @@ def main() -> int:
 
     # This slice's paths: the single-run program, then the decode's two
     # options.
-    s_fwd, s_hidden = _single_run(ops, failures, card)
+    (s_fwd, s_hidden), run = _single_run(ops, failures, card)
     d_fwd, d_hidden = _decode_options(ops, failures, card)
 
     # This slice's paths: sweeps and the study on them (damped_oscillator,
@@ -1915,8 +2045,12 @@ def main() -> int:
           f"{transfer_steps['kernel']:.1f} ({TRANSFER_RUNS * 4} members x "
           f"{N_ITER_TRANSFER_KERNEL} steps)")
 
+    # This slice's path: the figures' data on the card.
+    f_fwd = _figures(ops, failures, card, run)
+
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
-                 + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd)
+                 + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd
+                 + f_fwd)
     hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
                     + w_hidden + y_hidden + t_hidden)
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
@@ -1925,7 +2059,8 @@ def main() -> int:
           f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd}, "
           f"sweep {w_fwd} (member-batched), study {y_fwd}, artifact phase "
           f"{a_fwd} (the live kernel Predictor), transfer {t_fwd} "
-          f"(member-batched) = {fwd_total}; fused_mlp_hidden simple_beam "
+          f"(member-batched), figures {f_fwd} = {fwd_total}; "
+          f"fused_mlp_hidden simple_beam "
           f"training {hidden_launches} + bridge training {b_hidden} + single "
           f"run {s_hidden} + remat and bf16 {d_hidden} + sweep {w_hidden} + "
           f"study {y_hidden} + transfer {t_hidden} = {hidden_total}")

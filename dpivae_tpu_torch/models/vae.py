@@ -275,6 +275,35 @@ class DPIVAE:
         loc_y, tril_y = params.prior_net_y(y_t)
         return loc_c, tril_c, loc_y, tril_y
 
+    def sample_prior(self, params: DPIVAEParams, c, y, n: int = 1, *,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Noise = None, device: DeviceLike = None):
+        """Sample z_c ~ p(z_c|c) and z_y ~ p(z_y|y) from the learned priors:
+        (zc, log p(zc|c), zy, log p(zy|y)), zc and zy of shape
+        (n, batch, nz_*).
+
+        ``c`` and ``y`` (arrays or tensors) are placed on ``device`` (None
+        means CUDA), where the params must be. Randomness comes from
+        ``generator``, which draws "z_c" then "z_y", or from ``noise``, a
+        mapping of those two names to standard normals of shape
+        (n, batch, nz_*).
+        """
+        device = resolve_device(device)
+        c = torch.as_tensor(c, dtype=torch.float32, device=device)
+        y = torch.as_tensor(y, dtype=torch.float32, device=device)
+        lead = (n, *c.shape[:-1])
+        if noise is None:
+            noise = draw_normals((("z_c", self.nz_c), ("z_y", self.nz_y)),
+                                 generator, lead, device)
+        loc_c, tril_c, loc_y, tril_y = self.prior_net(params, c, y=y)
+        zc, dens_zc = gaussian_encoder_sample(
+            loc_c, tril_c, n,
+            eps=_normal(noise, "z_c", (*lead, self.nz_c), loc_c))
+        zy, dens_zy = gaussian_encoder_sample(
+            loc_y, tril_y, n,
+            eps=_normal(noise, "z_y", (*lead, self.nz_y), loc_y))
+        return zc, dens_zc, zy, dens_zy
+
     def noise_draws(self, cond: bool = False,
                     observations: bool = True) -> Tuple[Tuple[str, int], ...]:
         """What the model draws from a generator, in order, as (noise name,

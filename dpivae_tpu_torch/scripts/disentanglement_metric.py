@@ -3,7 +3,7 @@ scripts/1_disentanglement_metric.py).
 
     python -m dpivae_tpu_torch.scripts.disentanglement_metric \\
         --case damped_oscillator [--preset dpivae] [--n_runs 6] \\
-        [--n_iter 20000] [--regressor linear] [--device cpu]
+        [--n_iter 20000] [--regressor linear] [--plots] [--device cpu]
 
 The reference trains 11 λ x 6 seeds = 66 models one after another. Here
 ``sweep.train_sweep`` trains them in member-batched chunks on the device
@@ -16,12 +16,17 @@ member at once on the device (``--regressor linear``: least squares;
 ``mlp``: MLP(128, 128)). Writes ``<output>/<name>/``: ``args.json``,
 ``<member>/metrics/*.csv``, ``chunks/``, ``disentanglement_score.csv``
 (columns set, gen_factor, score, idx_var, iter, lambda, with λ x 10^4 as
-the JAX script writes it) and ``timings.json`` (seconds per stage).
+the JAX script writes it), ``timings.json`` (seconds per stage) and, with
+--plots, ``disentanglement_score.png``: each factor's probe score of each
+latent block against λ x 10^4 (symlog), mean ± sample std over the runs.
 
-Not ported: the score-vs-λ figure (the card has no matplotlib; ROADMAP.md,
-queue 1, item 10) and ``--n_devices`` (item 11). ``--probe_workers`` is
-accepted for the JAX script's command lines and has no effect: there is
-no process pool, the probes run batched.
+The JAX script draws that figure every time; here it takes --plots,
+because the card's host has no matplotlib. --plots checks before any work
+that matplotlib imports, and stops with an error naming it if not.
+
+Not ported: ``--n_devices`` (ROADMAP.md, queue 1, item 11).
+``--probe_workers`` is accepted for the JAX script's command lines and has
+no effect: there is no process pool, the probes run batched.
 """
 
 from __future__ import annotations
@@ -88,10 +93,62 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--latents_chunk", type=int, default=None,
                         help="members per batched latent extraction "
                              "(default: sweep.LATENTS_CHUNK_DEFAULT)")
+    parser.add_argument("--plots", action="store_true",
+                        help="also draw disentanglement_score.png (needs "
+                             "matplotlib)")
     parser.add_argument("--device", default=None,
                         help="torch device; default CUDA (raises without "
                              "a card: pass cpu to run on the CPU)")
     return parser
+
+
+def lambda_stats(lambdas, scores):
+    """Per distinct λ, ascending (as pandas' ``groupby`` sorts its keys):
+    (λ, the mean score, the sample std, ddof 1, NaN for a λ of one run)."""
+    lambdas = np.asarray(lambdas, np.float64)
+    scores = np.asarray(scores, np.float64)
+    keys, group = np.unique(lambdas, return_inverse=True)
+    counts = np.bincount(group, minlength=len(keys))
+    mean = np.bincount(group, weights=scores, minlength=len(keys)) / counts
+    dev = scores - mean[group]
+    ss = np.bincount(group, weights=dev * dev, minlength=len(keys))
+    std = np.full(len(keys), np.nan)
+    many = counts > 1
+    std[many] = np.sqrt(ss[many] / (counts[many] - 1))
+    return keys, mean, std
+
+
+def plot_scores(rows, case, path: str) -> None:
+    """The score-vs-λ figure of ``rows`` (disentanglement_score.csv's,
+    λ x 10^4): one panel per factor, one band per latent block."""
+    from matplotlib import pyplot as plt
+
+    from dpivae_tpu_torch.utils import CMAP_VARS
+
+    colors = ["tab:blue", "tab:green", "tab:orange"]
+    fig, ax = plt.subplots(len(case.factors), 1, sharex="col")
+    ax = np.atleast_1d(ax)
+    for i, factor in enumerate(case.factors):
+        for color, block, label in zip(
+                colors, ["zx", "zc", "zy"],
+                [r"$z_\mathrm{x}$", r"$z_\mathrm{c}$", r"$z_\mathrm{y}$"]):
+            picked = np.array([(r[5], r[2]) for r in rows
+                               if r[1] == factor.name and r[0] == block],
+                              np.float64).reshape(-1, 2)
+            lam, score = picked[:, 0], picked[:, 1]
+            keys, mean, std = lambda_stats(lam, score)
+            ax[i].fill_between(keys, mean - std, mean + std, alpha=0.4,
+                               color=color)
+            ax[i].plot(keys, mean, alpha=1.0, label=label, color=color)
+            ax[i].scatter(lam, score, alpha=0.9, s=4.0, color=color)
+        ax[i].set_xscale("symlog", linthresh=1)
+        ax[i].set_ylabel(factor.label, color=CMAP_VARS[factor.type])
+    ax[-1].legend(bbox_transform=fig.transFigure, loc="lower center",
+                  bbox_to_anchor=(0.5, 0.90), ncol=3)
+    ax[-1].set_xlabel(r"$\lambda \cdot 10^4$")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
 
 
 def _write_scores(path: str, rows) -> None:
@@ -108,6 +165,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
         parser.error("--n_devices (members sharded over a device mesh) is "
                      "not ported to dpivae_tpu_torch yet (ROADMAP.md, queue "
                      "1, item 11)")
+    if args.plots:
+        from dpivae_tpu_torch.viz.visualization import missing_plot_package
+
+        missing = missing_plot_package(("matplotlib",))
+        if missing is not None:
+            parser.error(f"--plots needs {missing}, which does not import "
+                         f"here; run without --plots")
 
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
@@ -215,6 +279,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
                   rows)
     if failures:
         print(f"{len(failures)} member probes failed: {failures}")
+    if args.plots:
+        plot_scores(rows, case,
+                    os.path.join(path_output, "disentanglement_score.png"))
+        t0 = mark("figure", t0)
     timings["total"] = round(time.perf_counter() - t_start, 3)
     with open(os.path.join(path_output, "timings.json"), "w") as f:
         json.dump(timings, f, indent=2)

@@ -3,7 +3,8 @@ scripts/2_regression_comparison.py):
 
     python -m dpivae_tpu_torch.scripts.regression_comparison \\
         [--case bridge] [--dist_type extrapolation] [--n_runs 6] \\
-        [--n_iter 20000] [--baselines sklearn] [--device cuda]
+        [--n_iter 20000] [--baselines sklearn] [--plot_domain] \\
+        [--device cuda]
 
 The physics-latent box splits into 4 quadrant domains
 (``utils.priors.make_square_dist``); each fold trains on a 3-quadrant
@@ -34,11 +35,13 @@ the order pandas writes the JAX script's MultiIndex frame),
 ``metrics/table.tex`` (mean ± std per (domain, model) and per model, the
 sample std, as pandas' ``to_latex`` formats them) and ``timings.json``
 (seconds of device_init, train_<preset>, predict_<preset>, baselines and
-total). Nothing here needs pandas.
+total). Nothing here needs pandas. --plot_domain also draws
+``figures/domains.png``: the physics factors of the first run's four
+folds, train against test (it needs matplotlib, checked before any work).
 
 It runs on the CUDA device unless --device says otherwise. Not ported:
 --n_devices (members sharded over a device mesh, ROADMAP.md queue 1,
-item 11) and --plot_domain (the figures, item 10): asking for them raises.
+item 11): asking for it raises.
 """
 
 from __future__ import annotations
@@ -90,7 +93,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_test", type=int, default=None)
     parser.add_argument("--cond", action="store_true")
     parser.add_argument("--plot_domain", action="store_true",
-                        help="the domains figure: not ported yet, raises")
+                        help="also draw figures/domains.png (needs "
+                             "matplotlib)")
     parser.add_argument("--skip_baselines", action="store_true")
     parser.add_argument(
         "--baselines", default="sklearn", choices=["sklearn", "jax"],
@@ -109,6 +113,28 @@ def _parser() -> argparse.ArgumentParser:
                         help="torch device; default CUDA (raises without "
                              "a card: pass cpu to run on the CPU)")
     return parser
+
+
+def plot_domains(case, z_train, z_test, path: str) -> None:
+    """The domains figure: for each of the first run's folds, its train
+    and test factors z (each (N_DOMAINS, n, n_factors)) over the first two
+    physics factors, with the fold's mean as cross hairs."""
+    from matplotlib import pyplot as plt
+
+    labels_x = [f.label for f in case.factors if f.type == "x"]
+    fig, ax = plt.subplots(1, N_DOMAINS, figsize=(12, 3),
+                           layout="compressed")
+    for i in range(N_DOMAINS):
+        ax[i].scatter(z_train[i][:, 0], z_train[i][:, 1], s=4.0)
+        ax[i].scatter(z_test[i][:, 0], z_test[i][:, 1], s=4.0)
+        ax[i].set_xlabel(labels_x[0], fontsize=14)
+        ax[i].set_title(f"Sub-case {i + 1}")
+        allz = np.vstack((z_train[i][:, :2], z_test[i][:, :2]))
+        ax[i].axvline(x=allz[:, 0].mean(), color="black")
+        ax[i].axhline(y=allz[:, 1].mean(), color="black")
+    ax[0].set_ylabel(labels_x[1], fontsize=14)
+    fig.savefig(path)
+    plt.close(fig)
 
 
 def _stream_seed(seed: int, tag: int) -> int:
@@ -212,8 +238,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
                      "not ported to dpivae_tpu_torch yet (ROADMAP.md, queue "
                      "1, item 11)")
     if args.plot_domain:
-        parser.error("--plot_domain (the figures) is not ported to "
-                     "dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 10)")
+        from dpivae_tpu_torch.viz.visualization import missing_plot_package
+
+        missing = missing_plot_package(("matplotlib",))
+        if missing is not None:
+            parser.error(f"--plot_domain needs {missing}, which does not "
+                         f"import here; run without --plot_domain")
 
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
@@ -235,7 +265,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
         base_cfg = base_cfg.replace(**overrides)
 
     path_output = os.path.join(args.output, args.name)
-    for sub in ("metrics", "settings"):
+    for sub in ("metrics", "settings") + (
+            ("figures",) if args.plot_domain else ()):
         os.makedirs(os.path.join(path_output, sub), exist_ok=True)
     base_cfg.save_json(os.path.join(path_output, "settings", "args.json"))
 
@@ -274,6 +305,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
     data_train, data_val, data_test = (
         tuple(torch.stack([d[k] for d in split]) for k in range(4))
         for split in splits)
+
+    if args.plot_domain:
+        plot_domains(case, data_train[3][:N_DOMAINS].cpu().numpy(),
+                     data_test[3][:N_DOMAINS].cpu().numpy(),
+                     os.path.join(path_output, "figures", "domains.png"))
 
     metrics = {j: {i + 1: {} for i in range(N_DOMAINS)}
                for j in range(args.n_runs)}

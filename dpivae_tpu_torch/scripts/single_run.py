@@ -1,10 +1,10 @@
 """One training run, its metric logs, a servable checkpoint, the baseline
-comparison and the VAE's evaluation (counterpart of scripts/0_single_run.py,
-without its plots):
+comparison, the VAE's evaluation and, with --plots, the figures
+(counterpart of scripts/0_single_run.py):
 
     python -m dpivae_tpu_torch.scripts.single_run --case simple_beam \\
         --preset dpivae [--name single_run] [--n_iter 20000] [--cond] \\
-        [--device cuda]
+        [--plots] [--device cuda]
 
 Outputs: output/<name>/settings/args.json (the config), metrics/ (the
 training logs as CSVs: train.csv, val.csv and one per series),
@@ -13,6 +13,18 @@ models/model (``train.checkpoint.save_model``; restore it with
 models/predictor.pt2 and its .meta.json (``serving.save_predictor``;
 serve it with ``serving.load_predictor``). The R², MSE and MAE of LIN, GPR, MLP and the
 VAE on the test split are printed, with the wall time of each stage.
+
+--plots draws the JAX program's figures into figures/, under its file
+names: loss_curve.png, regression_error_test_<model>.png (LIN, GPR, MLP
+and the VAE, under the run's name), fig_pred_x_<factor>.png,
+fig_pred_interp_x.png, fig_post_marginal_z.png, fig_post_marginal_z_01.png,
+fig_prior_marginal_z.png and fig_posterior_ground_truth.png. Their data
+are computed on the run's device (``viz.visualization``), the drawing on
+the host. Unlike the JAX program, the default is no figures (--no-plots
+is accepted): the card's host has no matplotlib, and the traversal KDE
+grids take minutes of host time. --plots checks before any work that
+matplotlib and seaborn import, and stops with an error naming the one
+that does not.
 
 The data come from the port's ``sample_response``, from generators on the
 device seeded with the seed (--seed, else the preset's config's), seed + 1
@@ -23,8 +35,7 @@ from the JAX program's at the same seed.
 
 It runs on the CUDA device unless --device says otherwise (--device cpu
 runs it on the CPU). Not ported: --n_devices above 1 (data parallelism,
-ROADMAP.md queue 1, item 11) and the figures (viz/, item 10): asking for
-them raises.
+ROADMAP.md queue 1, item 11): asking for it raises.
 """
 
 from __future__ import annotations
@@ -57,6 +68,53 @@ class SingleRun(NamedTuple):
     seconds: Dict[str, float]
 
 
+def draw_figures(cfg, case, model, params, logs, data_test, metrics,
+                 predictions, fig_dir, cond=False, seed=0, device=None):
+    """The JAX program's figures of a run, under its file names, into
+    ``fig_dir``; their data are computed on ``device``."""
+    from dpivae_tpu_torch.viz import (
+        plot_ground_truth_posterior,
+        plot_interp_pred,
+        plot_marginal_post,
+        plot_marginal_prior,
+        plot_pred,
+        plot_regression_error,
+        save_close_fig,
+        visualize_training_loss,
+    )
+
+    def save(fig, name):
+        save_close_fig(fig, os.path.join(fig_dir, name))
+
+    fig, _ = visualize_training_loss(
+        logs, n_skip_train=cfg.n_skip_plot_train,
+        n_skip_val=cfg.n_skip_plot_val)
+    save(fig, "loss_curve.png")
+    y_test = data_test[2].cpu().numpy()
+    for name, pred in predictions.items():
+        fig, _ = plot_regression_error(y_test, pred, case,
+                                       metrics=metrics[name],
+                                       title=f"{name}: Test")
+        save(fig, f"regression_error_test_{name}.png")
+    figure = dict(cond=cond, n_plot=cfg.n_plot, seed=seed, device=device)
+    for idx in range(len(case.factors)):
+        fig, _ = plot_pred(model, params, cfg, case, idx, **figure)
+        save(fig, f"fig_pred_x_{idx}.png")
+    fig, _ = plot_interp_pred(model, params, cfg, case, **figure)
+    save(fig, "fig_pred_interp_x.png")
+    fig, _ = plot_marginal_post(model, params, cfg, case, **figure)
+    save(fig, "fig_post_marginal_z.png")
+    fig, _ = plot_marginal_post(model, params, cfg, case, vars_interp=[0, 1],
+                                **figure)
+    save(fig, "fig_post_marginal_z_01.png")
+    fig, _ = plot_marginal_prior(model, params, cfg, case, n_plot=cfg.n_plot,
+                                 seed=seed, device=device)
+    save(fig, "fig_prior_marginal_z.png")
+    fig = plot_ground_truth_posterior(model, params, cfg, case,
+                                      case.gt_dist(), **figure)
+    save(fig, "fig_posterior_ground_truth.png")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -68,12 +126,19 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_val", type=int, default=None)
     parser.add_argument("--n_test", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--n_plot", type=int, default=None,
+                        help="responses per traversal point of a figure "
+                             "(default: the config's 2,000)")
+    parser.add_argument("--n_interp", type=int, default=None,
+                        help="traversal points per factor (default: the "
+                             "config's 5)")
     parser.add_argument("--cond", action="store_true")
     parser.add_argument("--no-plots", action="store_true",
-                        help="accepted for the JAX program's command lines; "
-                             "the figures are not ported, so none are drawn")
+                        help="draw no figures (the default; accepted for the "
+                             "JAX program's command lines)")
     parser.add_argument("--plots", action="store_true",
-                        help="draw the figures: not ported yet, raises")
+                        help="draw the figures into figures/ (needs "
+                             "matplotlib and seaborn)")
     parser.add_argument("--output", default="output")
     parser.add_argument("--n_devices", type=int, default=1,
                         help="data-parallel devices; only 1 is ported")
@@ -92,8 +157,12 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
         parser.error("--n_devices above 1 (data parallelism) is not ported "
                      "to dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 11)")
     if args.plots:
-        parser.error("the figures (viz/) are not ported to dpivae_tpu_torch "
-                     "yet (ROADMAP.md, queue 1, item 10)")
+        from dpivae_tpu_torch.viz.visualization import missing_plot_package
+
+        missing = missing_plot_package()
+        if missing is not None:
+            parser.error(f"--plots needs {missing}, which does not import "
+                         f"here; run without --plots")
 
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
@@ -112,7 +181,8 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
                      f"{args.case!r}; have {sorted(case.presets)}")
     cfg = TrainConfig().with_preset(case.presets[args.preset])
     cfg = cfg.replace(name=args.name, use_seed=True)
-    for field in ("n_iter", "n_train", "n_val", "n_test", "seed"):
+    for field in ("n_iter", "n_train", "n_val", "n_test", "seed", "n_plot",
+                  "n_interp"):
         value = getattr(args, field)
         if value is not None:
             cfg = cfg.replace(**{field: value})
@@ -121,7 +191,8 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
 
     path_output = os.path.join(args.output, args.name)
     paths = {sub: os.path.join(path_output, sub)
-             for sub in ("metrics", "settings", "models")}
+             for sub in ("metrics", "settings", "models")
+             + (("figures",) if args.plots else ())}
     for p in paths.values():
         os.makedirs(p, exist_ok=True)
     cfg.save_json(os.path.join(paths["settings"], "args.json"))
@@ -179,6 +250,12 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
     for name, m in metrics.items():
         print(f"{name}: R2={np.round(m['R2'], 4)} MSE={np.round(m['MSE'], 5)} "
               f"MAE={np.round(m['MAE'], 5)}")
+    if args.plots:
+        stage("figures", lambda: draw_figures(
+            cfg, case, model, params, logs, data_test, metrics, predictions,
+            paths["figures"], cond=args.cond, seed=cfg.seed + 5,
+            device=device))
+        print(f"Figures written to {paths['figures']}")
     print("stage seconds: " + ", ".join(
         f"{name} {s:.3f}" for name, s in seconds.items()))
     return SingleRun(cfg, case, model, params, logs, data_train, data_val,

@@ -1,7 +1,7 @@
 """Guards on dpivae_tpu_torch's boundaries: it imports neither jax nor the
 JAX package, nor what the machine with the card lacks (scikit-learn,
-pandas, pyarrow, orbax, matplotlib), and its entry points do not silently
-run on the CPU."""
+pandas, pyarrow, orbax, matplotlib, seaborn), and its entry points do not
+silently run on the CPU."""
 
 import os
 import subprocess
@@ -29,6 +29,7 @@ from dpivae_tpu_torch.sweep import (
 from dpivae_tpu_torch.train import init_params, setup_model, train_model
 from dpivae_tpu_torch.train.checkpoint import load_model, save_model
 from dpivae_tpu_torch.utils.data import sample_response
+from dpivae_tpu_torch.viz.visualization import traversal_data
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,7 +43,7 @@ def test_package_imports_no_jax_and_no_jax_package():
         for name in names:
             importlib.import_module(name)
         banned = ("jax", "jaxlib", "dpivae_tpu", "sklearn", "pandas",
-                  "pyarrow", "orbax", "matplotlib")
+                  "pyarrow", "orbax", "matplotlib", "seaborn")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in banned)
         print(len(names), bad)
@@ -95,6 +96,9 @@ def _entry_points(tmp_path):
         # The device is resolved before the file is read.
         "load_predictor": lambda: load_predictor(
             str(tmp_path / "predictor.pt2")),
+        "traversal_data": lambda: traversal_data(case, 0, 2, 4, gen),
+        "DPIVAE.sample_prior": lambda: model.sample_prior(
+            params, data[1], data[2], generator=gen),
     }
 
 
@@ -103,7 +107,7 @@ def _entry_points(tmp_path):
     "Predictor", "train_model", "P model init_params", "load_model",
     "single_run CLI", "train_sweep", "train_hyper_sweep", "train_sweep_data",
     "disentanglement_metric CLI", "regression_comparison CLI",
-    "load_predictor"])
+    "load_predictor", "traversal_data", "DPIVAE.sample_prior"])
 def test_entry_point_without_device_needs_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")
