@@ -147,7 +147,24 @@ Phases; any failure exits non-zero before the result line:
    forward once per traversal point (4 factors x 5 points x 2 figures = 40
    for simple_beam), the posterior and prior figures never. Nothing is
    drawn: the card's host has no matplotlib.
-14. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+14. The device mesh (``dpivae_tpu_torch.parallel``): ``make_mesh(1,
+   ("dp",))`` must come up as a one-rank NCCL group on cuda:0 (a gloo
+   group fails the phase). ``train_model(mesh=...)`` on simple_beam /
+   "dpivae" at bench.py's workload with the preset's "auto" (the kernels),
+   500 steps after a 20-step warm-up of each run, against the same run
+   without the mesh from the same seed: the forward launches n_iter +
+   n_iter / val_freq times and the hidden kernel n_iter times inside the
+   data-parallel step, params and logs equal (max difference printed;
+   rtol/atol 1e-5, a one-rank sum being the identity), steps/s of both
+   in turns, and torch.profiler's view of one data-parallel step (the
+   NCCL kernels and the host's all-reduce op, the busy share). Then
+   ``train_sweep`` over 66 damped_oscillator members with use_pallas=True,
+   200 steps, over a one-rank "sweep" mesh against the unsharded sweep
+   (equal; launches counted; member-steps/s of both), and the study
+   (``disentanglement_metric``, 11 λ x 6 runs, linear probes, 200 steps)
+   with ``--n_devices 1`` against the study without the flag: the same
+   disentanglement_score.csv. The process group is destroyed at the end.
+15. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -189,6 +206,8 @@ SWEEP_MEMBERS = 66
 N_ITER_TRANSFER = 300   # the transfer study's 20,000, cut for the limit
 N_ITER_TRANSFER_KERNEL = 100   # the use_pallas=True transfer grid's
 TRANSFER_RUNS = 6   # the study's own: 6 runs x 4 domains = 24 members
+N_ITER_MESH = 500   # the mesh's data-parallel run, cut for the limit
+N_ITER_MESH_SWEEP = 200   # the mesh's sweep and study, cut for the limit
 # BASELINE.md's JAX transfer study (extrapolation, 20,000 steps, reference
 # scale), mean ± std of the test R² over its 24 folds: a quality
 # reference printed beside this run's, not a threshold.
@@ -1951,6 +1970,243 @@ def _transfer(ops, failures, card):
         k: n_members * n / t for k, t in times.items()}
 
 
+def _max_diff(got, want) -> float:
+    """The largest |got - want| over tensors or state dicts, NaN rows
+    (past an early stop) compared as equal."""
+    if isinstance(got, dict):
+        return max(_max_diff(got[k], want[k]) for k in want)
+    if isinstance(got, (tuple, list)):
+        return max(_max_diff(a, b) for a, b in zip(got, want))
+    a, b = got.detach().float(), want.detach().float()
+    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+        return math.inf
+    return float((a - b).nan_to_num().abs().max()) if a.numel() else 0.0
+
+
+def _mesh_train(ops, failures, card, mesh):
+    """Phase 14 (b): train_model over the one-rank "dp" mesh against the
+    same run without it, launches counted, steps/s in turns, and a
+    profile of one data-parallel step. Returns its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.train import init_params, setup_model, train_model
+    from dpivae_tpu_torch.train.train import Trainer
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    case = get_case("simple_beam")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, patience=10**9, n_iter=N_ITER_MESH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data_train = sample_response(case, gen, cfg.n_train,
+                                 sample_dist=case.gt_dist(), device="cuda")
+    data_val = sample_response(case, gen, cfg.n_val,
+                               sample_dist=case.gt_dist(), device="cuda")
+    model = setup_model(cfg, case, data_train, device="cuda")
+    params = init_params(cfg, model, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+
+    def run(use_mesh, n_iter=N_ITER_MESH):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_model(cfg.replace(n_iter=n_iter), model, case,
+                          data_train, data_val, params=params, generator=g,
+                          device="cuda", mesh=mesh if use_mesh else None)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for use_mesh in (True, False):
+        run(use_mesh, N_ITER_WARM)
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    (mesh_params, mesh_logs), t_mesh = run(True)
+    launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    (plain_params, plain_logs), t_plain = run(False)
+    times = {"mesh": [t_mesh, run(True)[1]],
+             "plain": [t_plain, run(False)[1]]}
+    n = N_ITER_MESH
+    want = (n + n // cfg.val_freq, n)
+    worst = max(_max_diff(mesh_logs, plain_logs),
+                _max_diff(mesh_params.state_dict(), plain_params.state_dict()))
+    print(f"mesh train_model simple_beam / 'dpivae' ({card}): {n} steps "
+          f"over {mesh}, use_pallas {cfg.use_pallas!r} resolved to "
+          f"{model.use_pallas}; launches fused_mlp_fwd {launches[0]}, "
+          f"fused_mlp_hidden {launches[1]} (expected {want[0]}, {want[1]}); "
+          f"params and logs against the run without the mesh: max_abs_err "
+          f"{worst:.3e} (rtol {RTOL} atol {ATOL})")
+    if launches != want:
+        failures.append(f"mesh train_model: launches {launches}, expected "
+                        f"{want}")
+    ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+             for a, b in zip(mesh_logs, plain_logs)) and all(
+        torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(
+            mesh_params.state_dict().values(),
+            plain_params.state_dict().values()))
+    if not ok or mesh_logs.stop_iter != n:
+        failures.append("mesh train_model: params or logs differ from the "
+                        "run without the mesh")
+    steps_s = {k: [n / t for t in v] for k, v in times.items()}
+    print(f"mesh train_model steps/s ({card}), warm runs in turns mesh, "
+          f"plain, mesh, plain: with the mesh "
+          + " / ".join(f"{r:.1f}" for r in steps_s["mesh"])
+          + ", without " + " / ".join(f"{r:.1f}" for r in steps_s["plain"]))
+
+    # One warm data-parallel step under the profiler.
+    trainer = Trainer(cfg, case, params, data_train, data_val,
+                      cfg.lambda_g0, mesh=mesh)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for i in range(5):
+        trainer.step(i, generator=g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(5, 25):
+        trainer.step(i, generator=g)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(25, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = _device_events(prof)
+    _print_profile("one data-parallel train step (one-rank NCCL mesh)",
+                   events, wall_ms, step_ms)
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    host = [e for e in prof.key_averages()
+            if "allreduce" in e.key.lower().replace("_", "")
+            and not e.is_user_annotation]
+    print(f"profile: NCCL device kernels in the step: "
+          f"{sum(e.count for e in nccl)}, "
+          f"{sum(e.self_device_time_total for e in nccl) / 1e3:.4f} ms "
+          + (f"({', '.join(e.key[:60] for e in nccl)})" if nccl else
+             "(none: NCCL reduces one rank on the host side)")
+          + "; host all-reduce ops: " + (", ".join(
+              f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.4f} ms"
+              for e in host) or "none")
+          + f"; one all-reduce a step of {n_params} params + 8 log "
+          f"components = {4 * (n_params + 8)} bytes")
+    return launches
+
+
+def _mesh_sweep(ops, failures, card):
+    """Phase 14 (c): a member-sharded sweep over a one-rank "sweep" mesh
+    against the unsharded sweep. Returns its launches."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.parallel import make_mesh
+    from dpivae_tpu_torch.sweep import train_sweep
+
+    case = get_case("damped_oscillator")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_pallas=True, use_seed=True, seed=SEED, patience=10**9,
+        n_iter=N_ITER_MESH_SWEEP)
+    lambdas = torch.linspace(-1.0, 1.0, SWEEP_MEMBERS).tolist()
+    mesh = make_mesh(1, ("sweep",))
+    train_sweep(cfg.replace(n_iter=N_ITER_WARM), case, lambdas, seed=SEED,
+                device="cuda", mesh=mesh)
+
+    def run(use_mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_sweep(cfg, case, lambdas, seed=SEED, device="cuda",
+                          mesh=mesh if use_mesh else None)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    sharded, t_sharded = run(True)
+    launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    plain, t_plain = run(False)
+    n = N_ITER_MESH_SWEEP
+    want = (n + n // cfg.val_freq, n)
+    worst = max(_max_diff(sharded.logs, plain.logs),
+                _max_diff(sharded.params, plain.params))
+    rate = lambda t: SWEEP_MEMBERS * n / t
+    print(f"mesh sweep damped_oscillator / 'dpivae' ({card}): "
+          f"{SWEEP_MEMBERS} members x {n} steps over {mesh}, use_pallas "
+          f"True: launches fused_mlp_fwd {launches[0]}, fused_mlp_hidden "
+          f"{launches[1]} (expected {want[0]}, {want[1]}); against the "
+          f"unsharded sweep max_abs_err {worst:.3e} (rtol {RTOL} atol "
+          f"{ATOL}); member-steps/s sharded {rate(t_sharded):.1f}, "
+          f"unsharded {rate(t_plain):.1f}")
+    if launches != want:
+        failures.append(f"mesh sweep: launches {launches}, expected {want}")
+    if (sharded.params.keys() != plain.params.keys() or not all(
+            torch.allclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+            for a, b in zip((*sharded.logs, *sharded.params.values()),
+                            (*plain.logs, *plain.params.values())))):
+        failures.append("mesh sweep: the sharded sweep differs from the "
+                        "unsharded one")
+    return launches
+
+
+def _mesh_study(ops, failures, card):
+    """Phase 14 (d): the study with --n_devices 1 against the study
+    without the flag, at phase 10's sizes cut to N_ITER_MESH_SWEEP steps.
+    Returns the launches of both calls."""
+    import tempfile
+
+    from dpivae_tpu_torch.scripts import disentanglement_metric as study
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    argv = ["--case", "damped_oscillator", "--n_iter",
+            str(N_ITER_MESH_SWEEP), "--regressor", "linear", "--device",
+            "cuda"]
+    texts, walls = {}, {}
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    with tempfile.TemporaryDirectory(dir=root) as out:
+        for name, extra in (("plain", []), ("mesh", ["--n_devices", "1"])):
+            t0 = time.perf_counter()
+            run = study.main(argv + ["--output", os.path.join(out, name)]
+                             + extra)
+            walls[name] = time.perf_counter() - t0
+            with open(os.path.join(run.path,
+                                   "disentanglement_score.csv")) as f:
+                texts[name] = f.read()
+            n_rows = len(texts[name].splitlines()) - 1
+            stages = ", ".join(f"{k} {v:.3f} s" for k, v in
+                               run.timings.items())
+            print(f"mesh study ({name}, {card}): {run.result.n_members} "
+                  f"members, {N_ITER_MESH_SWEEP} steps, {n_rows} score rows, "
+                  f"{walls[name]:.2f} s; stages {stages}")
+    launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    same = texts["mesh"] == texts["plain"] and n_rows > 0
+    print(f"mesh study: disentanglement_score.csv with --n_devices 1 "
+          f"{'identical to' if same else 'DIFFERENT from'} the run without "
+          f"the flag; launches {launches} ('auto' is plain in sweeps)")
+    if not same:
+        failures.append("mesh study: --n_devices 1 changed the scores")
+    return launches
+
+
+def _mesh(ops, failures, card):
+    """Phase 14: the device mesh on the card. Returns the (forward,
+    hidden) launches of its paths."""
+    import torch.distributed as dist
+
+    from dpivae_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, ("dp",))
+    try:
+        backend = dist.get_backend()
+        print(f"mesh ({card}): make_mesh(1, ('dp',)) -> {mesh}, process "
+              f"group backend {backend}, world size {dist.get_world_size()}")
+        if backend != "nccl" or mesh.device != torch.device("cuda", 0):
+            failures.append(f"mesh: backend {backend} on {mesh.device}, "
+                            f"expected nccl on cuda:0")
+        train = _mesh_train(ops, failures, card, mesh)
+        sweep = _mesh_sweep(ops, failures, card)
+        studies = _mesh_study(ops, failures, card)
+    finally:
+        mesh.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return tuple(a + b + c for a, b, c in zip(train, sweep, studies))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2045,25 +2301,29 @@ def main() -> int:
           f"{transfer_steps['kernel']:.1f} ({TRANSFER_RUNS * 4} members x "
           f"{N_ITER_TRANSFER_KERNEL} steps)")
 
-    # This slice's path: the figures' data on the card.
+    # The figures' data on the card.
     f_fwd = _figures(ops, failures, card, run)
+
+    # This slice's paths: the device mesh (one-rank NCCL group).
+    m_fwd, m_hidden = _mesh(ops, failures, card)
 
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
                  + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd
-                 + f_fwd)
+                 + f_fwd + m_fwd)
     hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
-                    + w_hidden + y_hidden + t_hidden)
+                    + w_hidden + y_hidden + t_hidden + m_hidden)
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
           f"{serve_launches} + training {fwd_launches}, bridge serving "
           f"{b_launches} + training {b_fwd}, damped_oscillator serving "
           f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd}, "
           f"sweep {w_fwd} (member-batched), study {y_fwd}, artifact phase "
           f"{a_fwd} (the live kernel Predictor), transfer {t_fwd} "
-          f"(member-batched), figures {f_fwd} = {fwd_total}; "
+          f"(member-batched), figures {f_fwd}, mesh {m_fwd} = {fwd_total}; "
           f"fused_mlp_hidden simple_beam "
           f"training {hidden_launches} + bridge training {b_hidden} + single "
           f"run {s_hidden} + remat and bf16 {d_hidden} + sweep {w_hidden} + "
-          f"study {y_hidden} + transfer {t_hidden} = {hidden_total}")
+          f"study {y_hidden} + transfer {t_hidden} + mesh {m_hidden} = "
+          f"{hidden_total}")
 
     if failures:
         for f in failures:

@@ -24,7 +24,17 @@ The JAX script draws that figure every time; here it takes --plots,
 because the card's host has no matplotlib. --plots checks before any work
 that matplotlib imports, and stops with an error naming it if not.
 
-Not ported: ``--n_devices`` (ROADMAP.md, queue 1, item 11).
+--n_devices N splits the members over a ("sweep",) mesh of N ranks, one
+per device (``parallel.make_mesh``), as the JAX script does whenever the
+flag is given: 1 is a one-rank mesh in this process, and N above 1 is
+launched by ``python -m torch.distributed.run --standalone
+--nproc_per_node N -m dpivae_tpu_torch.scripts.disentanglement_metric
+--n_devices N ...`` (without it, it stops at parse time naming that
+command). A sharded sweep keeps no chunks and has no chunk callback, as
+in the JAX script: rank 0 writes the members' CSVs after training, then
+runs the latents and probes and writes the scores; the other ranks wait
+at a barrier and return None.
+
 ``--probe_workers`` is accepted for the JAX script's command lines and has
 no effect: there is no process pool, the probes run batched.
 """
@@ -43,6 +53,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from dpivae_tpu_torch.parallel.mesh import launch_problem
+
+MODULE = "dpivae_tpu_torch.scripts.disentanglement_metric"
 SCALE_LAMBDA = 1e4
 # λ·10^4 grid of the reference study
 VAR_LIST = np.array(
@@ -89,7 +102,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--lambdas", type=float, nargs="*", default=None,
                         help="override the λ grid (raw values, not x1e4)")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="not ported (ROADMAP.md, queue 1, item 11)")
+                        help="shard sweep members over a ('sweep',) mesh "
+                             "of this many ranks; above 1 it needs "
+                             "torch.distributed.run's launch")
     parser.add_argument("--latents_chunk", type=int, default=None,
                         help="members per batched latent extraction "
                              "(default: sweep.LATENTS_CHUNK_DEFAULT)")
@@ -158,13 +173,12 @@ def _write_scores(path: str, rows) -> None:
         writer.writerows(rows)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Study:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[Study]:
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.n_devices:
-        parser.error("--n_devices (members sharded over a device mesh) is "
-                     "not ported to dpivae_tpu_torch yet (ROADMAP.md, queue "
-                     "1, item 11)")
+    problem = launch_problem(args.n_devices, MODULE)
+    if problem:
+        parser.error(problem)
     if args.plots:
         from dpivae_tpu_torch.viz.visualization import missing_plot_package
 
@@ -176,6 +190,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
     from dpivae_tpu_torch.eval.probes import BLOCKS, batched_probe_scores
+    from dpivae_tpu_torch.parallel import make_mesh
     from dpivae_tpu_torch.sweep import (
         sweep_disentanglement_latents,
         train_sweep,
@@ -195,9 +210,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
     lambdas = np.asarray(
         args.lambdas if args.lambdas is not None else VAR_LIST, np.float32)
 
+    mesh = None
+    if args.n_devices:
+        mesh = make_mesh(args.n_devices, ("sweep",), device=device)
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0
     path_output = os.path.join(args.output, args.name)
-    os.makedirs(path_output, exist_ok=True)
-    cfg.save_json(os.path.join(path_output, "args.json"))
+    if writer:
+        os.makedirs(path_output, exist_ok=True)
+        cfg.save_json(os.path.join(path_output, "args.json"))
 
     timings: Dict[str, float] = {}
     t_start = time.perf_counter()
@@ -206,13 +227,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         timings[phase] = round(time.perf_counter() - t0, 3)
-        print(f"[phase] {phase}: {timings[phase]:.2f}s", file=sys.stderr,
-              flush=True)
+        if writer:
+            print(f"[phase] {phase}: {timings[phase]:.2f}s",
+                  file=sys.stderr, flush=True)
         return time.perf_counter()
 
     n_members = len(lambdas) * args.n_runs
-    print(f"Training {n_members} sweep members ({len(lambdas)} λ x "
-          f"{args.n_runs} runs) on {device} ...")
+    if writer:
+        print(f"Training {n_members} sweep members ({len(lambdas)} λ x "
+              f"{args.n_runs} runs) on {device}"
+              + (f", split over {mesh}" if mesh else "") + " ...")
     # The first device contact (context creation) apart from training.
     t0 = time.perf_counter()
     torch.zeros((), device=device).add_(1)
@@ -233,9 +257,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
     try:
         result = train_sweep(
             cfg, case, lambdas=lambdas, n_runs=args.n_runs, seed=args.seed,
-            checkpoint_dir=os.path.join(path_output, "chunks"),
-            chunk_callback=on_chunk, device=device)
+            mesh=mesh,
+            # completed chunks persist; rerunning the same study resumes
+            checkpoint_dir=(None if mesh
+                            else os.path.join(path_output, "chunks")),
+            chunk_callback=None if mesh else on_chunk, device=device)
         t0 = mark("train", t0)
+        if not writer:
+            mesh.barrier()
+            mesh.close()
+            return None
+        if mesh is not None:
+            # A sharded sweep streams no chunks: the members' CSVs go now.
+            host = result.host()
+            on_chunk(0, host.params, host.logs)
         print("Sweep training done; running disentanglement probes ...")
 
         latents = sweep_disentanglement_latents(
@@ -289,6 +324,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Study:
     print(f"[phase] total: {timings['total']:.2f}s", file=sys.stderr,
           flush=True)
     print(f"Wrote {path_output}/disentanglement_score.csv and timings.json")
+    if mesh is not None:
+        mesh.barrier()
+        mesh.close()
     return Study(cfg, case, result, rows, failures, path_output, timings)
 
 

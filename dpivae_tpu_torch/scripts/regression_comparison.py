@@ -39,9 +39,17 @@ total). Nothing here needs pandas. --plot_domain also draws
 ``figures/domains.png``: the physics factors of the first run's four
 folds, train against test (it needs matplotlib, checked before any work).
 
-It runs on the CUDA device unless --device says otherwise. Not ported:
---n_devices (members sharded over a device mesh, ROADMAP.md queue 1,
-item 11): asking for it raises.
+It runs on the CUDA device unless --device says otherwise. --n_devices N
+splits each preset's members over a ("sweep",) mesh of N ranks, one per
+device (``parallel.make_mesh``), as the JAX script does whenever the flag
+is given; N must divide the member count (runs x 4 domains). 1 is a
+one-rank mesh in this process; N above 1 is launched by ``python -m
+torch.distributed.run --standalone --nproc_per_node N -m
+dpivae_tpu_torch.scripts.regression_comparison --n_devices N ...``
+(without it, it stops at parse time naming that command). With a mesh
+no chunks are kept, the prediction is split over the mesh too, and rank 0
+alone fits the baselines and writes the results; the other ranks wait at
+a barrier and return None.
 """
 
 from __future__ import annotations
@@ -58,6 +66,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from dpivae_tpu_torch.parallel.mesh import launch_problem
+
+MODULE = "dpivae_tpu_torch.scripts.regression_comparison"
 N_DOMAINS = 4
 PRESETS = ("DPIVAE-A", "DPIVAE-B")
 CSV_COLUMNS = ("Run", "Domain", "Model", "R2", "MSE", "MAE")
@@ -108,7 +119,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=123)
     parser.add_argument("--output", default="output")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="not ported (ROADMAP.md, queue 1, item 11)")
+                        help="shard sweep members over a ('sweep',) mesh "
+                             "of this many ranks (it must divide the member "
+                             "count); above 1 it needs torch.distributed."
+                             "run's launch")
     parser.add_argument("--device", default=None,
                         help="torch device; default CUDA (raises without "
                              "a card: pass cpu to run on the CPU)")
@@ -230,13 +244,17 @@ def tables_tex(rows: Sequence[tuple], dist_type: str) -> str:
 # The study
 # ----------------------------------------------------------------------
 
-def main(argv: Optional[Sequence[str]] = None) -> Transfer:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[Transfer]:
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.n_devices:
-        parser.error("--n_devices (members sharded over a device mesh) is "
-                     "not ported to dpivae_tpu_torch yet (ROADMAP.md, queue "
-                     "1, item 11)")
+    n_members = args.n_runs * N_DOMAINS
+    if args.n_devices and n_members % args.n_devices:
+        parser.error(f"--n_devices must divide the member count "
+                     f"({n_members} = {args.n_runs} runs x {N_DOMAINS} "
+                     f"domains)")
+    problem = launch_problem(args.n_devices, MODULE)
+    if problem:
+        parser.error(problem)
     if args.plot_domain:
         from dpivae_tpu_torch.viz.visualization import missing_plot_package
 
@@ -248,6 +266,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
     from dpivae_tpu_torch.eval import run_comparison, run_comparison_batched
+    from dpivae_tpu_torch.parallel import make_mesh
     from dpivae_tpu_torch.sweep import sweep_predict_y, train_sweep_data
     from dpivae_tpu_torch.train.train import member_generators
     from dpivae_tpu_torch.utils import resolve_device
@@ -264,11 +283,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
     if overrides:
         base_cfg = base_cfg.replace(**overrides)
 
+    mesh = None
+    if args.n_devices:
+        mesh = make_mesh(args.n_devices, ("sweep",), device=device)
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0
     path_output = os.path.join(args.output, args.name)
-    for sub in ("metrics", "settings") + (
-            ("figures",) if args.plot_domain else ()):
-        os.makedirs(os.path.join(path_output, sub), exist_ok=True)
-    base_cfg.save_json(os.path.join(path_output, "settings", "args.json"))
+    if writer:
+        for sub in ("metrics", "settings") + (
+                ("figures",) if args.plot_domain else ()):
+            os.makedirs(os.path.join(path_output, sub), exist_ok=True)
+        base_cfg.save_json(os.path.join(path_output, "settings",
+                                        "args.json"))
 
     timings: Dict[str, float] = {}
     t_study = time.perf_counter()
@@ -277,8 +303,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         timings[phase] = round(time.perf_counter() - t0, 3)
-        print(f"[phase] {phase}: {timings[phase]:.2f}s", file=sys.stderr,
-              flush=True)
+        if writer:
+            print(f"[phase] {phase}: {timings[phase]:.2f}s",
+                  file=sys.stderr, flush=True)
         return time.perf_counter()
 
     # The first device contact (context creation) apart from the rest.
@@ -292,7 +319,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
         dists_train, dists_test = make_square_dist(case)
     else:
         dists_test, dists_train = make_square_dist(case)
-    n_members = args.n_runs * N_DOMAINS
     splits = ([], [], [])
     for m, g in enumerate(member_generators(args.seed, range(n_members),
                                             device)):
@@ -306,7 +332,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
         tuple(torch.stack([d[k] for d in split]) for k in range(4))
         for split in splits)
 
-    if args.plot_domain:
+    if args.plot_domain and writer:
         plot_domains(case, data_train[3][:N_DOMAINS].cpu().numpy(),
                      data_test[3][:N_DOMAINS].cpu().numpy(),
                      os.path.join(path_output, "figures", "domains.png"))
@@ -322,13 +348,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
     results = {}
     for preset_idx, preset in enumerate(PRESETS):
         cfg = base_cfg.with_preset(case.presets[preset])
-        print(f"Training {preset}: {n_members} members ({args.n_runs} runs "
-              f"x {N_DOMAINS} domains) batched on {device} ...")
+        if writer:
+            print(f"Training {preset}: {n_members} members ({args.n_runs} "
+                  f"runs x {N_DOMAINS} domains) batched on {device}"
+                  + (f", split over {mesh}" if mesh else "") + " ...")
         result = train_sweep_data(
             cfg, case, np.full(n_members, cfg.lambda_g0, np.float32),
             data_train, data_val,
             seed=_stream_seed(args.seed, _TRAIN_TAG + preset_idx),
-            checkpoint_dir=os.path.join(path_output, f"chunks_{preset}"),
+            mesh=mesh,
+            # completed chunks persist: a rerun into the same output
+            # resumes them
+            checkpoint_dir=(None if mesh else
+                            os.path.join(path_output, f"chunks_{preset}")),
             device=device)
         results[preset] = result
         t0 = mark(f"train_{preset}", t0)
@@ -336,11 +368,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
         y_pred = sweep_predict_y(
             cfg, case, result, data_train, data_test[0], data_test[1],
             cond=args.cond, n=cfg.n_mc_test,
-            seed=_stream_seed(args.seed, _PREDICT_TAG)).cpu().numpy()
+            seed=_stream_seed(args.seed, _PREDICT_TAG),
+            mesh=mesh).cpu().numpy()
         for m in range(n_members):
             record(m, {preset: regression_metrics(y_test[m], y_pred[m])})
         t0 = mark(f"predict_{preset}", t0)
 
+    if not writer:
+        mesh.barrier()
+        mesh.close()
+        return None
     if not args.skip_baselines:
         seed = _stream_seed(args.seed, _BASELINE_TAG)
         if args.baselines == "jax":
@@ -378,6 +415,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Transfer:
           flush=True)
     print(f"Wrote {path_output}/metrics/{{raw_metrics.csv,table.tex}} and "
           f"timings.json")
+    if mesh is not None:
+        mesh.barrier()
+        mesh.close()
     return Transfer(base_cfg, case, results, (data_train, data_val, data_test),
                     rows, path_output, timings)
 

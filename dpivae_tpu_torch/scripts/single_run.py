@@ -34,8 +34,18 @@ torch's random streams are not JAX's, so the datasets and the run differ
 from the JAX program's at the same seed.
 
 It runs on the CUDA device unless --device says otherwise (--device cpu
-runs it on the CPU). Not ported: --n_devices above 1 (data parallelism,
-ROADMAP.md queue 1, item 11): asking for it raises.
+runs it on the CPU). --n_devices N above 1 trains data-parallel over a
+("dp",) mesh of N ranks, one per device (``parallel.make_mesh``; NCCL
+between cards, gloo with --device cpu), launched by
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m dpivae_tpu_torch.scripts.single_run --n_devices N ...
+
+Every rank trains; rank 0 alone writes the settings, CSVs, checkpoint and
+artifact, evaluates, fits the baselines and draws the figures, while the
+others wait at a barrier and return None. Without the launcher, N above 1
+stops at parse time with that command. --n_devices 1 (the default) is the
+run without a mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +58,12 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from dpivae_tpu_torch.parallel.mesh import launch_problem
+
 BASELINES = ("LIN", "GPR", "MLP")
+MODULE = "dpivae_tpu_torch.scripts.single_run"
+
+
 
 
 class SingleRun(NamedTuple):
@@ -141,7 +156,12 @@ def _parser() -> argparse.ArgumentParser:
                              "matplotlib and seaborn)")
     parser.add_argument("--output", default="output")
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="data-parallel devices; only 1 is ported")
+                        help="data-parallel devices: each training and "
+                             "validation batch is split over a 'dp' mesh "
+                             "axis of this many ranks (params replicated, "
+                             "gradients summed in one collective a step); "
+                             "above 1 it needs torch.distributed.run's "
+                             "launch; 1 = no mesh")
     parser.add_argument("--export_serving", action="store_true",
                         help="also write models/predictor.pt2, the serving "
                              "artifact (torch.export), with its .meta.json")
@@ -150,12 +170,12 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[SingleRun]:
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.n_devices != 1:
-        parser.error("--n_devices above 1 (data parallelism) is not ported "
-                     "to dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 11)")
+    problem = launch_problem(args.n_devices, MODULE)
+    if problem:
+        parser.error(problem)
     if args.plots:
         from dpivae_tpu_torch.viz.visualization import missing_plot_package
 
@@ -167,6 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
     from dpivae_tpu_torch.eval import evaluate_model, run_comparison
+    from dpivae_tpu_torch.parallel import make_mesh
     from dpivae_tpu_torch.serving import save_predictor
     from dpivae_tpu_torch.train import init_params, setup_model, train_model
     from dpivae_tpu_torch.train.checkpoint import save_model
@@ -189,13 +210,19 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
     if cfg.n_batch > cfg.n_train:
         cfg = cfg.replace(n_batch=cfg.n_train)
 
+    mesh = None
+    if args.n_devices > 1:
+        mesh = make_mesh(args.n_devices, ("dp",), device=device)
+        device = mesh.device
+    writer = mesh is None or mesh.rank == 0
     path_output = os.path.join(args.output, args.name)
     paths = {sub: os.path.join(path_output, sub)
              for sub in ("metrics", "settings", "models")
              + (("figures",) if args.plots else ())}
-    for p in paths.values():
-        os.makedirs(p, exist_ok=True)
-    cfg.save_json(os.path.join(paths["settings"], "args.json"))
+    if writer:
+        for p in paths.values():
+            os.makedirs(p, exist_ok=True)
+        cfg.save_json(os.path.join(paths["settings"], "args.json"))
 
     seconds: Dict[str, float] = {}
 
@@ -218,11 +245,17 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
 
     model = setup_model(cfg, case, data_train, device=device)
     params = init_params(cfg, model, device=device)
-    print(f"Training {args.case}/{args.preset} for {cfg.n_iter} iters on "
-          f"{device} (fused-MLP kernel: {model.use_pallas}) ...")
+    if writer:
+        print(f"Training {args.case}/{args.preset} for {cfg.n_iter} iters "
+              f"on {device} (fused-MLP kernel: {model.use_pallas})"
+              + (f", data-parallel over {mesh}" if mesh else "") + " ...")
     params, logs = stage("train", lambda: train_model(
         cfg, model, case, data_train, data_val, params=params,
-        generator=generator(3), device=device))
+        generator=generator(3), device=device, mesh=mesh))
+    if not writer:
+        mesh.barrier()
+        mesh.close()
+        return None
     print(f"Done: stopped at iter {logs.stop_iter}, "
           f"final train ELBO {logs.scalars('ELBO')[1][-1]:.4f}, "
           f"final val ELBO {logs.scalars('ELBO_val')[1][-1]:.4f}")
@@ -258,6 +291,9 @@ def main(argv: Optional[Sequence[str]] = None) -> SingleRun:
         print(f"Figures written to {paths['figures']}")
     print("stage seconds: " + ", ".join(
         f"{name} {s:.3f}" for name, s in seconds.items()))
+    if mesh is not None:
+        mesh.barrier()
+        mesh.close()
     return SingleRun(cfg, case, model, params, logs, data_train, data_val,
                      data_test, metrics, predictions, paths, seconds)
 

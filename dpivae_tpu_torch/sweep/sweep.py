@@ -21,8 +21,21 @@ named by a digest of the sweep's identity, as in the JAX package
 (``_sweep_manifest``), so a rerun resumes completed chunks and never
 another sweep's.
 
-Not ported: the device mesh (``mesh=`` raises; ROADMAP.md, queue 1,
-item 11). The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
+With a ``mesh`` (``parallel.make_mesh``) the members are split over its
+``member_axis`` ("sweep"), as in the JAX package: the trainers pad them
+to a multiple of the axis size by repeating the last member (the pads
+train and are dropped; ``train_sweep_data`` instead requires that the
+count divides), rank r trains its contiguous slice, and the params and
+logs are gathered over the axis and returned on every rank. A member's
+generator depends on its id and not on its rank, so a sharded sweep
+trains exactly the members of the unsharded one. A mesh that also has a
+"dp" axis of size above 1 makes each member's steps data-parallel over
+it (``train.train.MemberTrainer``). The evaluators split their members
+the same way and gather their outputs. A sharded sweep has no chunk
+files or chunk callback: ``checkpoint_dir`` and ``chunk_callback`` are
+refused with a mesh, as in the JAX package.
+
+The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
 caches only warm or cache compiled programs; eager PyTorch compiles
 nothing, so they have no counterpart.
 """
@@ -44,6 +57,7 @@ from dpivae_tpu_torch.cases import Case
 from dpivae_tpu_torch.config import TrainConfig
 from dpivae_tpu_torch.eval.evaluate import build_eval_sample_fn
 from dpivae_tpu_torch.models.decoders import DECODER_X_HIDDEN
+from dpivae_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from dpivae_tpu_torch.train.checkpoint import save_model
 from dpivae_tpu_torch.train.setup import make_template_model, setup_model
 from dpivae_tpu_torch.train.train import (
@@ -64,11 +78,82 @@ from dpivae_tpu_torch.utils.data import sample_response
 LATENTS_CHUNK_DEFAULT = 22
 
 
-def _mesh_not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (members sharded over devices) is not ported to "
-            "dpivae_tpu_torch yet (ROADMAP.md, queue 1, item 11)")
+def _sweep_device(mesh: Optional[Mesh], device: DeviceLike) -> torch.device:
+    """``device`` resolved (None means CUDA); with a mesh, the mesh's
+    device, which must be of the same type."""
+    device = resolve_device(device)
+    if mesh is None:
+        return device
+    if mesh.device.type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device}, the sweep on "
+                         f"{device}")
+    return mesh.device
+
+
+def _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback) -> None:
+    if mesh is None:
+        return
+    if chunk_callback is not None:
+        raise ValueError(
+            "chunk_callback requires the chunked (non-mesh) path — the "
+            "mesh path trains each rank's members and gathers them, with "
+            "no chunk stream")
+    if checkpoint_dir is not None:
+        raise ValueError(
+            "checkpoint_dir (and gc_stale_chunks) require the chunked "
+            "(non-mesh) path — the mesh path has no chunk files to save, "
+            "resume, or GC")
+
+
+def _member_share(mesh: Mesh, member_axis: str, n_members: int):
+    """(this rank's slice of the members padded to a multiple of the
+    axis size, the padded count)."""
+    size = mesh.shape[member_axis]
+    n_padded = n_members + (-n_members) % size
+    return mesh.rows(member_axis, n_padded), n_padded
+
+
+def _pad_members(a, n_padded: int):
+    """``a`` with its last member repeated up to ``n_padded`` members."""
+    n_pad = n_padded - a.shape[0]
+    if not n_pad:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[-1:].expand(n_pad, *a.shape[1:])])
+    return np.concatenate([a, np.repeat(a[-1:], n_pad, axis=0)])
+
+
+def _gather_members(mesh: Mesh, member_axis: str, a: torch.Tensor,
+                     n_members: int) -> torch.Tensor:
+    """Every rank's members of ``a`` joined in rank order, the pads
+    dropped."""
+    return all_gather_rows(a, mesh.groups[member_axis],
+                           mesh.shape[member_axis])[:n_members]
+
+
+def _sharded_members(config, case, mesh, member_axis, lam, keys, device,
+                     chunk_size, hyper=None, data=None):
+    """The members of a sharded sweep: this rank's slice (padded, or exact
+    for ``data``) trained in chunks of ``chunk_size``, then every rank's
+    gathered. With a "dp" axis of size above 1 each member's steps are
+    data-parallel over it."""
+    n_members = lam.shape[0]
+    share, n_padded = _member_share(mesh, member_axis, n_members)
+    pick = lambda a: _pad_members(a, n_padded)[share]
+    local_n = share.stop - share.start
+    dp = mesh if mesh.shape.get("dp", 1) > 1 else None
+    local = _chunked_execute(
+        _run_members(config, case, pick(lam), pick(keys), device,
+                     hyper={f: pick(v) for f, v in hyper.items()}
+                     if hyper else None,
+                     data=None if data is None
+                     else tuple(tuple(pick(a) for a in d) for d in data),
+                     mesh=dp),
+        local_n, _chunk(chunk_size, local_n, config, case, device),
+        label="sweep")
+    gather = lambda a: _gather_members(mesh, member_axis, a, n_members)
+    params = {k: gather(v) for k, v in local[0].items()}
+    return params, TrainLogs(*(gather(a) for a in local[1]))
 
 
 class SweepResult(NamedTuple):
@@ -453,11 +538,12 @@ def _chunked_execute(run_chunk: Callable, n_members: int, chunk_size: int,
 
 def _run_members(config: TrainConfig, case: Case, lambdas: np.ndarray,
                  keys: np.ndarray, device: torch.device, hyper=None,
-                 data=None):
+                 data=None, mesh: Optional[Mesh] = None):
     """The chunk runner: each member of a slice starts from its generator
-    (data unless given, init), then all train at once."""
+    (data unless given, init), then all train at once (data-parallel over
+    ``mesh``'s "dp" axis when given)."""
     template = make_template_model(config, case, device=device)
-    train_fn = build_member_train_fn(config, case)
+    train_fn = build_member_train_fn(config, case, mesh)
 
     def run(sl):
         gens = _generators(keys[sl], device)
@@ -492,12 +578,13 @@ def train_sweep(
     lambdas: Sequence[float],
     n_runs: int = 1,
     seed: Optional[int] = None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     chunk_size: Union[int, str, None] = "auto",
     checkpoint_dir: Optional[str] = None,
     chunk_callback=None,
     gc_stale_chunks: bool = False,
     device: DeviceLike = None,
+    member_axis: str = "sweep",
 ) -> SweepResult:
     """Train the (λ × run) grid in member-batched chunks on ``device``
     (None means CUDA).
@@ -507,8 +594,10 @@ def train_sweep(
             ``n_runs`` seeds (the reference study: 11 λ x 6 runs).
         seed: the sweep seed (default ``config.seed``); member m's
             generator is seeded from (seed, m).
-        chunk_size: members per batched training; "auto"
-            (``auto_chunk_size``) or None for all at once.
+        mesh: members split over its ``member_axis`` and gathered (module
+            docstring); every rank calls this with the same arguments.
+        chunk_size: members per batched training (per rank with a mesh);
+            "auto" (``auto_chunk_size``) or None for all at once.
         checkpoint_dir: if set, every completed chunk is saved and a rerun
             of the identical sweep resumes it; chunks of other sweeps
             sharing the dir are never resumed (``_sweep_manifest``).
@@ -520,15 +609,19 @@ def train_sweep(
     Returns:
         SweepResult ordered λ-major (member = i_lambda * n_runs + i_run).
     """
-    _mesh_not_ported(mesh)
+    _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
     if gc_stale_chunks and checkpoint_dir is None:
         raise ValueError("gc_stale_chunks requires checkpoint_dir")
-    device = resolve_device(device)
+    device = _sweep_device(mesh, device)
     config = member_config(config)
     seed = config.seed if seed is None else int(seed)
     lam = np.repeat(np.asarray(lambdas, np.float32).reshape(-1), n_runs)
     n_members = lam.shape[0]
     keys = _keys(seed, np.arange(n_members))
+    if mesh is not None:
+        params, logs = _sharded_members(config, case, mesh, member_axis, lam,
+                                        keys, device, chunk_size)
+        return SweepResult(params, logs, lam, keys, str(device))
     chunk_size = _chunk(chunk_size, n_members, config, case, device)
     params, logs = _chunked_execute(
         _run_members(config, case, lam, keys, device), n_members, chunk_size,
@@ -549,11 +642,12 @@ def train_hyper_sweep(
     lambdas=None,
     seed: Optional[int] = None,
     chunk_size: Union[int, str, None] = "auto",
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     checkpoint_dir: Optional[str] = None,
     chunk_callback=None,
     gc_stale_chunks: bool = False,
     device: DeviceLike = None,
+    member_axis: str = "sweep",
 ) -> HyperSweepResult:
     """Train a hyperparameter grid in member-batched chunks: any subset of
     ``TRACEABLE_HYPER_FIELDS`` (per-group learning rates and weight
@@ -567,10 +661,11 @@ def train_hyper_sweep(
             init are paired across settings.
         lambdas: optional per-row GRL strengths (default
             ``config.lambda_g0``).
-        seed, chunk_size, checkpoint_dir, chunk_callback, gc_stale_chunks,
-            device: as in ``train_sweep`` (the digest covers the grid).
+        seed, mesh, chunk_size, checkpoint_dir, chunk_callback,
+            gc_stale_chunks, device, member_axis: as in ``train_sweep``
+            (the digest covers the grid).
     """
-    _mesh_not_ported(mesh)
+    _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
     if gc_stale_chunks and checkpoint_dir is None:
         raise ValueError("gc_stale_chunks requires checkpoint_dir")
     fields = tuple(sorted(grid))
@@ -596,10 +691,16 @@ def train_hyper_sweep(
     grid_out = {f: rep(c) for f, c in zip(fields, cols)}
     lam = rep(lam_rows)
     n_members = n_rows * n_runs
-    device = resolve_device(device)
+    device = _sweep_device(mesh, device)
     config = member_config(config)
     seed = config.seed if seed is None else int(seed)
     keys = _keys(seed, np.tile(np.arange(n_runs), n_rows))
+    if mesh is not None:
+        params, logs = _sharded_members(config, case, mesh, member_axis, lam,
+                                        keys, device, chunk_size,
+                                        hyper=grid_out)
+        return HyperSweepResult(params, logs, grid_out, lam, keys,
+                                str(device))
     chunk_size = _chunk(chunk_size, n_members, config, case, device)
     params, logs = _chunked_execute(
         _run_members(config, case, lam, keys, device, hyper=grid_out),
@@ -619,20 +720,22 @@ def train_sweep_data(
     data_train,
     data_val,
     seed: Optional[int] = None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     chunk_size: Union[int, str, None] = "auto",
     checkpoint_dir: Optional[str] = None,
     chunk_callback=None,
     gc_stale_chunks: bool = False,
     device: DeviceLike = None,
+    member_axis: str = "sweep",
 ) -> SweepResult:
     """Sweep over given per-member datasets: ``data_train``/``data_val``
     are (x, c, y) whose arrays carry a leading member axis (e.g. the
     domain-transfer grid of the regression study). Each member's
     generator, from (seed, m), draws its init and training noise;
-    chunking and checkpoints as in ``train_sweep`` (the digest covers the
-    datasets)."""
-    _mesh_not_ported(mesh)
+    chunking, checkpoints and ``mesh`` as in ``train_sweep`` (the digest
+    covers the datasets), except that with a mesh the member count must
+    divide by the ``member_axis`` size."""
+    _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
     if gc_stale_chunks and checkpoint_dir is None:
         raise ValueError("gc_stale_chunks requires checkpoint_dir")
     lam = np.asarray(lambdas, np.float32).reshape(-1)
@@ -644,10 +747,18 @@ def train_sweep_data(
     for a in (*data_train, *data_val):
         if a.shape[0] != n_members:
             raise ValueError("data member axis must match len(lambdas)")
-    device = resolve_device(device)
+    device = _sweep_device(mesh, device)
     config = member_config(config)
     seed = config.seed if seed is None else int(seed)
     keys = _keys(seed, np.arange(n_members))
+    if mesh is not None:
+        if n_members % mesh.shape[member_axis]:
+            raise ValueError("pad members to a multiple of the mesh axis "
+                             "for train_sweep_data")
+        params, logs = _sharded_members(config, case, mesh, member_axis, lam,
+                                        keys, device, chunk_size,
+                                        data=(data_train, data_val))
+        return SweepResult(params, logs, lam, keys, str(device))
     chunk_size = _chunk(chunk_size, n_members, config, case, device)
     params, logs = _chunked_execute(
         _run_members(config, case, lam, keys, device,
@@ -693,57 +804,89 @@ def _member_slices(n_members: int, chunk_size: Optional[int]):
 
 
 def _sample_members(config, case, result, data_train, x, c, *, cond, n,
-                    slots, seed, noise, chunk_size):
-    """``DPIVAE.sample`` of ``slots`` for every member (stacked, leading
-    member axis), in chunks of members under ``torch.func.vmap`` on the
-    device the members trained on: each member's scalers fitted on its
-    ``data_train``, its noise from ``noise`` (stacked mappings) or drawn
-    from its own generator, seeded from (seed, member), outside vmap."""
+                    slots, seed, noise, chunk_size, ids=None):
+    """``DPIVAE.sample`` of ``slots`` for the members ``ids`` (default
+    all; stacked, leading member axis), in chunks of members under
+    ``torch.func.vmap`` on the device the members trained on: each
+    member's scalers fitted on its ``data_train``, its noise from
+    ``noise`` (stacked mappings) or drawn from its own generator, seeded
+    from (seed, member), outside vmap. ``data_train``, ``x``, ``c`` and
+    ``noise`` hold the members ``ids``."""
     config = member_config(config)
     device = torch.device(result.device)
+    ids = np.arange(result.n_members) if ids is None else np.asarray(ids)
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     data_train = tuple(as_t(a) for a in data_train[:3])
     x, c = as_t(x), as_t(c)
     template = make_template_model(config, case, device=device)
     sample_fn = torch.func.vmap(build_eval_sample_fn(
         config, case, cond, n, slots=slots, device=device))
-    gens = (member_generators(seed, range(result.n_members), device)
-            if noise is None else None)
+    gens = (member_generators(seed, ids, device) if noise is None else None)
     outs = []
-    for sl in _member_slices(result.n_members, chunk_size):
+    for sl in _member_slices(len(ids), chunk_size):
         if noise is None:
             eps = _stack_noise([_observation_noise(
                 template, g, n, x.shape[1], cond, slots, device)
                 for g in gens[sl]])
         else:
             eps = {k: as_t(v[sl]) for k, v in noise.items()}
-        state = {k: v[sl].to(device) for k, v in result.params.items()}
+        state = {k: v[torch.as_tensor(ids[sl])].to(device)
+                 for k, v in result.params.items()}
         with torch.no_grad():
             outs.append(sample_fn(state, tuple(a[sl] for a in data_train),
                                   x[sl], c[sl], eps))
     return tuple(torch.cat([o[j] for o in outs]) for j in range(len(slots)))
 
 
+def _sharded_sample(config, case, result, data_train, x, c, *, mesh,
+                    member_axis, noise, **kwargs):
+    """``_sample_members`` of every member, with a mesh each rank's
+    contiguous share (the member count must divide by the axis size) and
+    the outputs gathered over ``member_axis``."""
+    if mesh is None:
+        return _sample_members(config, case, result, data_train, x, c,
+                               noise=noise, **kwargs)
+    n_members = result.n_members
+    if n_members % mesh.shape[member_axis]:
+        raise ValueError("n_members must be a multiple of the mesh axis")
+    share = mesh.rows(member_axis, n_members)
+    outs = _sample_members(
+        config, case, result, tuple(a[share] for a in data_train[:3]),
+        x[share], c[share], ids=np.arange(n_members)[share],
+        noise=None if noise is None else {k: v[share]
+                                          for k, v in noise.items()},
+        **kwargs)
+    return tuple(_gather_members(mesh, member_axis, o, n_members)
+                 for o in outs)
+
+
 def sweep_sample(config: TrainConfig, case: Case, result, data_train, x, c,
                  cond: bool = False, n: int = 1, seed: int = 0, noise=None,
-                 chunk_size: Optional[int] = None):
+                 chunk_size: Optional[int] = None,
+                 mesh: Optional[Mesh] = None, member_axis: str = "sweep"):
     """``model.sample`` of every member: the stacked 9-tuple, each with a
     leading member axis. ``data_train`` (the members' training sets, for
     their scalers), ``x`` and ``c`` carry a leading member axis; noise as
-    in ``_sample_members``."""
-    return _sample_members(config, case, result, data_train, x, c,
+    in ``_sample_members``. With ``mesh`` the members (a multiple of the
+    ``member_axis`` size) are split over the axis and the outputs gathered
+    on every rank."""
+    return _sharded_sample(config, case, result, data_train, x, c,
+                           mesh=mesh, member_axis=member_axis, noise=noise,
                            cond=cond, n=n, slots=tuple(range(9)), seed=seed,
-                           noise=noise, chunk_size=chunk_size)
+                           chunk_size=chunk_size)
 
 
 def sweep_predict_y(config: TrainConfig, case: Case, result, data_train, x,
                     c, cond: bool = False, n: int = 1, seed: int = 0,
-                    noise=None, chunk_size: Optional[int] = None):
+                    noise=None, chunk_size: Optional[int] = None,
+                    mesh: Optional[Mesh] = None, member_axis: str = "sweep"):
     """The posterior-mean ŷ of every member, (M, n_test, nd_y): only the
-    y slot is sampled (no decoder_x), its mean over n samples."""
-    (y,) = _sample_members(config, case, result, data_train, x, c,
+    y slot is sampled (no decoder_x), its mean over n samples. ``mesh`` as
+    in ``sweep_sample``."""
+    (y,) = _sharded_sample(config, case, result, data_train, x, c,
+                           mesh=mesh, member_axis=member_axis, noise=noise,
                            cond=cond, n=n, slots=(4,), seed=seed,
-                           noise=noise, chunk_size=chunk_size)
+                           chunk_size=chunk_size)
     return torch.mean(y, dim=1)
 
 
@@ -761,6 +904,7 @@ def sweep_disentanglement_latents(
     config: TrainConfig, case: Case, result, n_train_reg: int,
     n_test_reg: int, cond: bool = False, use_mean: bool = False,
     seed: int = 1, chunk_size: Optional[int] = None, noise=None,
+    mesh: Optional[Mesh] = None, member_axis: str = "sweep",
 ):
     """Posterior latents of every member on fresh probe datasets.
 
@@ -771,7 +915,10 @@ def sweep_disentanglement_latents(
     ``use_mean``) of both splits, the encoder's noise drawn from the same
     generator after the datasets, or taken from ``noise``, a pair of
     stacked mappings (train, test). Members run in chunks of
-    ``chunk_size`` (default ``LATENTS_CHUNK_DEFAULT``).
+    ``chunk_size`` (default ``LATENTS_CHUNK_DEFAULT``). With ``mesh`` each
+    chunk's members are split over ``member_axis`` (``chunk_size`` must
+    divide by its size; the members are padded to a multiple of it by
+    repeating the last), and the latents are gathered on every rank.
 
     Returns a dict of (M, ...) tensors: zx/zc/zy_{train,test} and the
     ground-truth factors z_{train,test}.
@@ -780,9 +927,21 @@ def sweep_disentanglement_latents(
     n = config.n_mc_test if use_mean else 1
     device = torch.device(result.device)
     template = make_template_model(config, case, device=device)
-    gens = member_generators(seed, range(result.n_members), device)
+    n_members = result.n_members
+    ids = np.arange(n_members)
+    if mesh is not None:
+        chunk_size = min(chunk_size or LATENTS_CHUNK_DEFAULT, n_members)
+        if chunk_size % mesh.shape[member_axis]:
+            raise ValueError("chunk_size must be a multiple of the mesh axis")
+        share, n_padded = _member_share(mesh, member_axis, n_members)
+        ids = _pad_members(ids, n_padded)[share]
+        chunk_size //= mesh.shape[member_axis]
+        if noise is not None:
+            noise = tuple({k: _pad_members(v, n_padded)[share]
+                           for k, v in split.items()} for split in noise)
+    gens = member_generators(seed, ids, device)
     dtr_member, splits, eps = [], ([], []), ([], [])
-    for g, gen in zip(gens, _generators(result.keys, device)):
+    for g, gen in zip(gens, _generators(result.keys[ids], device)):
         dtr_member.append(sample_response(
             case, gen, config.n_train, sample_dist=case.gt_dist(),
             device=device)[:3])
@@ -803,7 +962,10 @@ def sweep_disentanglement_latents(
         zx, zc, zy = _sample_members(
             config, case, result, data_train, stack(rows, 0), stack(rows, 1),
             cond=cond, n=n, slots=(5, 6, 7), seed=seed, noise=mapping,
-            chunk_size=chunk_size)
+            chunk_size=chunk_size, ids=ids)
         out.update({f"zx_{name}": zx.mean(1), f"zc_{name}": zc.mean(1),
                     f"zy_{name}": zy.mean(1), f"z_{name}": stack(rows, 3)})
+    if mesh is not None:
+        out = {k: _gather_members(mesh, member_axis, v, n_members)
+               for k, v in out.items()}
     return out

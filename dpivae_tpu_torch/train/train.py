@@ -19,9 +19,21 @@ a seam for tests: explicit ``batch_idx`` and ``noise`` in place of the
 generator. ``MemberTrainer`` and ``build_member_train_fn`` train M runs at
 once (the sweeps' engine, the counterpart of ``train_fn`` under
 ``jax.vmap`` with per-run λ and ``hyper`` inputs), with the same loop and
-seam. Not ported: data parallelism over a mesh, progress narration, scan
-unrolling, the executable cache and a CUDA-graph or compiled step loop
-(ROADMAP.md, queue 1, item 5).
+seam.
+
+With a ``mesh`` (``parallel.make_mesh``) both are data-parallel over its
+``dp_axis`` (counterpart of the JAX package's ``mesh=`` branch): every
+rank holds the whole data and draws the global batch rows and encoder
+normals from a generator in lockstep with the other ranks', keeps its
+contiguous rows of the batch and of the validation set, and sums the
+gradients and the log components over the axis in one collective per
+step, before the clip. Each component is a per-datum sum over a global
+divisor, so the sum of the ranks' is the global row, and the early stop
+reads the same number on every rank. ``use_pallas="auto"`` resolves on
+the global training shape, as in the JAX package.
+
+Not ported: progress narration, scan unrolling, the executable cache and
+a CUDA-graph or compiled step loop (ROADMAP.md, queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -37,6 +49,11 @@ import torch
 from dpivae_tpu_torch.cases import Case
 from dpivae_tpu_torch.config import TrainConfig
 from dpivae_tpu_torch.models.vae import DPIVAEParams, bind_params
+from dpivae_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum_,
+    replicated,
+)
 from dpivae_tpu_torch.train.optim import (
     MemberAdam,
     clip_grad_global_norm_,
@@ -109,18 +126,48 @@ def _sample_batch(generator: torch.Generator, n_train: int, n_batch: int,
     return torch.topk(rand((n_train,), generator, device), n_batch).indices
 
 
+class _DataShard(NamedTuple):
+    """This rank's share of a data-parallel step: the process group of the
+    dp axis and its rows of the global batch and of the validation set."""
+
+    group: object
+    train: slice
+    val: slice
+
+
+def _data_shard(config: TrainConfig, mesh: Optional[Mesh],
+                dp_axis: str) -> Optional[_DataShard]:
+    if mesh is None:
+        return None
+    n_dp = mesh.shape[dp_axis]
+    if config.n_batch % n_dp or config.n_val % n_dp:
+        raise ValueError(
+            f"n_batch ({config.n_batch}) and n_val ({config.n_val}) "
+            f"must be divisible by the '{dp_axis}' mesh axis ({n_dp})")
+    return _DataShard(mesh.groups[dp_axis],
+                      mesh.rows(dp_axis, config.n_batch),
+                      mesh.rows(dp_axis, config.n_val))
+
+
 class Trainer:
     """One training run: the model with scalers fitted on ``data_train``,
     the grouped Adam over ``params`` (updated in place), the data on the
-    params' device, and the annealing schedules evaluated for every step."""
+    params' device, and the annealing schedules evaluated for every step.
+    With ``mesh``, data-parallel over its ``dp_axis`` (module docstring):
+    ``step``'s and ``validate``'s explicit ``batch_idx`` and ``noise`` are
+    then the global batch's, of which this rank keeps its rows."""
 
     def __init__(self, config: TrainConfig, case: Case, params: DPIVAEParams,
-                 data_train, data_val, lambda_g0: float):
+                 data_train, data_val, lambda_g0: float,
+                 mesh: Optional[Mesh] = None, dp_axis: str = "dp"):
         self.config, self.params = config, params
         self.device = device = params.log_sigma_x.device
+        self.shard = _data_shard(config, mesh, dp_axis)
         as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
         self.data_train = tuple(as_t(a) for a in data_train[:3])
         self.data_val = tuple(as_t(a) for a in data_val[:3])
+        if self.shard is not None:
+            self.data_val = tuple(a[self.shard.val] for a in self.data_val)
         self.model = setup_model(config, case, self.data_train, device=device)
         self.optimizer = make_optimizer(config, params)
 
@@ -167,11 +214,20 @@ class Trainer:
         if batch_idx is None:
             batch_idx = _sample_batch(generator, cfg.n_train, cfg.n_batch,
                                       self.device)
+        if self.shard is not None:
+            rows = self.shard.train
+            batch_idx = torch.as_tensor(batch_idx, device=self.device)[rows]
+            noise = self._local_noise(noise, generator, cfg.n_mc_train,
+                                      cfg.n_batch, rows)
         batch = tuple(a[batch_idx] for a in self.data_train)
         self.optimizer.zero_grad(set_to_none=True)
         scalar, comps = self._normalized_loss(
             batch, cfg.n_mc_train, step_idx, self._div_train, generator, noise)
         scalar.backward()
+        if self.shard is not None:
+            grads = [p.grad for p in self.params.parameters()
+                     if p.grad is not None]
+            all_reduce_sum_(grads + [comps], self.shard.group)
         if cfg.clip_gradients:
             clip_grad_global_norm_(self.params.parameters(), cfg.max_grad_norm)
         self.optimizer.step()
@@ -181,28 +237,52 @@ class Trainer:
     def validate(self, step_idx: int, *, generator=None,
                  noise=None) -> torch.Tensor:
         """The validation components in VAL_COLUMNS order, on the device."""
+        cfg = self.config
+        if self.shard is not None:
+            noise = self._local_noise(noise, generator, cfg.n_mc_val,
+                                      cfg.n_val, self.shard.val)
         with torch.no_grad():
             _, comps = self._normalized_loss(
-                self.data_val, self.config.n_mc_val, step_idx, self._div_val,
+                self.data_val, cfg.n_mc_val, step_idx, self._div_val,
                 generator, noise)
+        if self.shard is not None:
+            all_reduce_sum_([comps], self.shard.group)
         return comps
 
+    def _local_noise(self, noise, generator, n_mc: int, n_rows: int,
+                     rows: slice) -> dict:
+        """This rank's rows of the global encoder normals: ``noise``'s, or
+        drawn from ``generator`` as the loss draws them."""
+        eps = (encoder_noise(self.model, generator, n_mc, n_rows, self.device)
+               if noise is None else torch.as_tensor(
+                   noise["z"], dtype=torch.float32, device=self.device))
+        return {"z": eps[:, rows]}
 
-def build_train_fn(config: TrainConfig, case: Case):
+
+def build_train_fn(config: TrainConfig, case: Case,
+                   mesh: Optional[Mesh] = None, dp_axis: str = "dp"):
     """Returns ``train_fn(params, generator, data_train, data_val,
     lambda_g0) -> (params, TrainLogs)``.
 
     ``train_fn`` trains a copy of ``params`` on their device, drawing
     batches and noise from ``generator``; ``data_train``/``data_val`` are
     (x, c, y[, ...]) arrays or tensors, and the input scalers are fitted on
-    ``data_train``. ``lambda_g0`` is the GRL strength.
+    ``data_train``. ``lambda_g0`` is the GRL strength. With ``mesh`` the
+    run is data-parallel over ``dp_axis`` (``n_batch`` and ``n_val`` must
+    divide by its size): every rank passes the whole data and a generator
+    seeded as the others', and the params are broadcast from the axis's
+    first rank before the first step.
     """
+    _data_shard(config, mesh, dp_axis)
     n_iter, vf = config.n_iter, config.val_freq
     n_blocks = -(-n_iter // vf)
 
     def train_fn(params, generator, data_train, data_val, lambda_g0):
         params = copy.deepcopy(params)
-        run = Trainer(config, case, params, data_train, data_val, lambda_g0)
+        if mesh is not None:
+            replicated(mesh, params, dp_axis)
+        run = Trainer(config, case, params, data_train, data_val, lambda_g0,
+                      mesh, dp_axis)
         device = params.log_sigma_x.device
         nan = lambda *shape: torch.full(shape, float("nan"), device=device)
         train, val = nan(n_iter, len(TRAIN_COLUMNS)), nan(n_blocks,
@@ -233,28 +313,42 @@ def build_train_fn(config: TrainConfig, case: Case):
 def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
                 params: Optional[DPIVAEParams] = None,
                 generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                dp_axis: str = "dp"):
     """Train a DPIVAE on ``device`` (None means CUDA).
 
     ``model`` (from ``setup_model``) initializes the params when none are
     given; ``params`` are not modified. Without a generator, one on
     ``device`` is seeded with ``config.seed`` when ``config.use_seed``, else
-    at random. Returns (trained params, logs).
+    at random (with a mesh, rank 0's random seed on every rank). With
+    ``mesh`` (its device of ``device``'s type) the run is data-parallel
+    over ``dp_axis`` (``build_train_fn``); every rank calls this with the
+    same arguments and gets the same result. Returns (trained params,
+    logs).
     """
     device = resolve_device(device)
+    if mesh is not None:
+        if mesh.device.type != device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, training on "
+                             f"{device}")
+        device = mesh.device
     if generator is None:
         generator = torch.Generator(device=device)
         if config.use_seed:
             generator.manual_seed(config.seed)
-        else:
+        elif mesh is None:
             generator.seed()
+        else:
+            seed = torch.tensor([torch.Generator().seed() % 2**62],
+                                device=device)
+            generator.manual_seed(int(replicated(mesh, seed)))
     if params is None:
         params = model.init(generator, device=device)
     if params.log_sigma_x.device.type != device.type:
         raise ValueError(
             f"params are on {params.log_sigma_x.device}, training on {device}"
         )
-    train_fn = build_train_fn(config, case)
+    train_fn = build_train_fn(config, case, mesh, dp_axis)
     return train_fn(params, generator, data_train, data_val, config.lambda_g0)
 
 
@@ -344,10 +438,16 @@ class MemberTrainer:
             data, as JAX refits them in the trace.
         lambdas: (M,) GRL strengths.
         hyper: config field (``TRACEABLE_HYPER_FIELDS``) -> (M,) values.
+        mesh, dp_axis: data parallelism over the mesh's ``dp_axis``, as in
+            ``Trainer``: each member's global batch and normals are drawn
+            from its generator and this rank keeps its rows; the (M, ...)
+            gradients and (M, 8) components are summed over the axis
+            outside ``vmap``, before the per-member clip.
     """
 
     def __init__(self, config: TrainConfig, case: Case, params: dict,
-                 data_train, data_val, lambdas, hyper=None):
+                 data_train, data_val, lambdas, hyper=None,
+                 mesh: Optional[Mesh] = None, dp_axis: str = "dp"):
         hyper = dict(hyper or {})
         bad = set(hyper) - TRACEABLE_HYPER_FIELDS
         if bad:
@@ -364,12 +464,15 @@ class MemberTrainer:
         first = next(iter(params.values()))
         self.device = device = first.device
         self.n_members = m = first.shape[0]
+        self.shard = _data_shard(config, mesh, dp_axis)
         as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
         self.data_train = tuple(as_t(a) for a in data_train[:3])
         self.data_val = tuple(as_t(a) for a in data_val[:3])
         for a in (*self.data_train, *self.data_val):
             if a.shape[0] != m:
                 raise ValueError(f"data has {a.shape[0]} members, params {m}")
+        if self.shard is not None:
+            self.data_val = tuple(a[:, self.shard.val] for a in self.data_val)
         self.template = make_template_model(config, case, device=device)
         self.scalers = tuple(
             (torch.mean(a, dim=1, keepdim=True),
@@ -456,11 +559,16 @@ class MemberTrainer:
                if noise is None else noise["z"])
         rows = torch.arange(self.n_members, device=self.device)[:, None]
         batch_idx = torch.as_tensor(batch_idx, device=self.device)
-        batch = tuple(a[rows, batch_idx] for a in self.data_train)
         eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        if self.shard is not None:
+            batch_idx = batch_idx[:, self.shard.train]
+            eps = eps[:, :, self.shard.train]
+        batch = tuple(a[rows, batch_idx] for a in self.data_train)
         grads, comps = self._grad_fn(
             self.params, *batch, eps, self.scalers,
             self.schedule[:, step_idx], self.alphas)
+        if self.shard is not None:
+            all_reduce_sum_(list(grads.values()) + [comps], self.shard.group)
         return comps, grads
 
     def step(self, step_idx: int, *, generators=None, batch_idx=None,
@@ -477,16 +585,23 @@ class MemberTrainer:
                  noise=None) -> torch.Tensor:
         """The (M, 8) validation components in VAL_COLUMNS order."""
         cfg = self.config
-        eps = (self._draw_noise(generators, cfg.n_mc_val, cfg.n_val)
-               if noise is None else noise["z"])
+        eps = torch.as_tensor(
+            self._draw_noise(generators, cfg.n_mc_val, cfg.n_val)
+            if noise is None else noise["z"], dtype=torch.float32,
+            device=self.device)
+        if self.shard is not None:
+            eps = eps[:, :, self.shard.val]
         with torch.no_grad():
-            return self._value_fn(
-                self.params, *self.data_val,
-                torch.as_tensor(eps, dtype=torch.float32, device=self.device),
-                self.scalers, self.schedule[:, step_idx], self.alphas)
+            comps = self._value_fn(
+                self.params, *self.data_val, eps, self.scalers,
+                self.schedule[:, step_idx], self.alphas)
+        if self.shard is not None:
+            all_reduce_sum_([comps], self.shard.group)
+        return comps
 
 
-def build_member_train_fn(config: TrainConfig, case: Case):
+def build_member_train_fn(config: TrainConfig, case: Case,
+                          mesh: Optional[Mesh] = None, dp_axis: str = "dp"):
     """Returns ``train_fn(params, generators, data_train, data_val,
     lambdas, hyper=None) -> (params, TrainLogs)`` for M members at once:
     ``build_train_fn``'s loop over a ``MemberTrainer``, with logs of shape
@@ -501,15 +616,18 @@ def build_member_train_fn(config: TrainConfig, case: Case):
     ``torch.where`` on params and Adam moments; their rows past the stop
     are NaN and inactive. The (M,) validation losses are read once per
     block, and the loop ends early only when every member has stopped.
+    With ``mesh``, each member's steps are data-parallel over ``dp_axis``
+    (``MemberTrainer``).
     """
     config = member_config(config)
+    _data_shard(config, mesh, dp_axis)
     n_iter, vf = config.n_iter, config.val_freq
     n_blocks = -(-n_iter // vf)
 
     def train_fn(params, generators, data_train, data_val, lambdas,
                  hyper=None):
         run = MemberTrainer(config, case, params, data_train, data_val,
-                            lambdas, hyper)
+                            lambdas, hyper, mesh, dp_axis)
         m, device = run.n_members, run.device
         if len(generators) != m:
             raise ValueError(f"{len(generators)} generators for {m} members")

@@ -15,6 +15,7 @@ import torch
 from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.models.vae import DPIVAE
+from dpivae_tpu_torch.parallel import make_mesh
 from dpivae_tpu_torch.scripts import (
     disentanglement_metric,
     regression_comparison,
@@ -47,11 +48,22 @@ def test_package_imports_no_jax_and_no_jax_package():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in banned)
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 40 else 0)
+        walked = {"dpivae_tpu_torch.parallel.mesh",
+                  "dpivae_tpu_torch.examples.multichip_sweep"} <= set(names)
+        sys.exit(1 if bad or len(names) < 40 or not walked else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _on_cpu_mesh(fn):
+    """``fn(mesh)`` with a one-rank CPU mesh, closed after."""
+    mesh = make_mesh(1, device="cpu")
+    try:
+        return fn(mesh)
+    finally:
+        mesh.close()
 
 
 def _entry_points(tmp_path):
@@ -79,6 +91,10 @@ def _entry_points(tmp_path):
         "init_params": lambda: init_params(cfg, model),
         "Predictor": lambda: Predictor(model, params, cfg),
         "train_model": lambda: train_model(cfg, model, case, data, data),
+        "make_mesh": lambda: make_mesh(),
+        "train_model(mesh=)": lambda: _on_cpu_mesh(
+            lambda mesh: train_model(cfg, model, case, data, data,
+                                     mesh=mesh)),
         "P model init_params": lambda: init_params(p_cfg, p_model),
         "load_model": lambda: load_model(saved, case),
         "single_run CLI": lambda: single_run.main(
@@ -104,7 +120,8 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("entry", [
     "sample_response", "setup_model", "DPIVAE.init", "init_params",
-    "Predictor", "train_model", "P model init_params", "load_model",
+    "Predictor", "train_model", "make_mesh", "train_model(mesh=)",
+    "P model init_params", "load_model",
     "single_run CLI", "train_sweep", "train_hyper_sweep", "train_sweep_data",
     "disentanglement_metric CLI", "regression_comparison CLI",
     "load_predictor", "traversal_data", "DPIVAE.sample_prior"])
@@ -113,6 +130,19 @@ def test_entry_point_without_device_needs_cuda(entry, tmp_path):
         pytest.skip("a CUDA device is present; device=None runs on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points(tmp_path)[entry]()
+
+
+def test_parallel_names_no_jax():
+    """parallel/'s source imports neither jax nor the JAX package (the
+    import walk above checks what importing it brings in)."""
+    folder = os.path.join(REPO, "dpivae_tpu_torch", "parallel")
+    names = [n for n in os.listdir(folder) if n.endswith(".py")]
+    assert {"__init__.py", "mesh.py"} <= set(names)
+    for name in names:
+        with open(os.path.join(folder, name)) as f:
+            source = f.read()
+        assert "import jax" not in source and "from jax" not in source
+        assert "dpivae_tpu." not in source.replace("dpivae_tpu_torch", "")
 
 
 def test_sample_needs_generator_or_noise():

@@ -347,7 +347,10 @@ def test_single_run_cli_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--n_devices", "2"], "item 11"),
+    # --n_devices above 1 needs the launcher (the id is the one the case
+    # has always had, from when the mesh was not ported).
+    pytest.param(["--n_devices", "2"], "torch.distributed.run --standalone",
+                 id="flag0-item 11"),
     # --plots is refused where seaborn does not import, as on the card's
     # host (the id is the one the case has always had).
     pytest.param(["--plots"], "--plots needs seaborn", id="flag1-item 10"),

@@ -263,8 +263,11 @@ def test_data_sweep_and_guards():
     assert torch.isfinite(res.logs.train).all()
     with pytest.raises(ValueError, match="member axis"):
         train_sweep_data(cfg, CASE, [0.1], stack(0), stack(1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_sweep(cfg, CASE, [0.1], mesh=object(), device="cpu")
+    # A mesh has no chunk stream (the mesh itself is tested in
+    # tests/test_torch_parallel.py).
+    with pytest.raises(ValueError, match="chunk_callback"):
+        train_sweep(cfg, CASE, [0.1], mesh=object(),
+                    chunk_callback=lambda *a: None, device="cpu")
     with pytest.raises(ValueError, match="cannot be swept"):
         train_hyper_sweep(cfg, CASE, {"n_iter": [1]}, device="cpu")
     with pytest.raises(NotImplementedError, match="remat_decode"):

@@ -368,7 +368,10 @@ def test_study_end_to_end_resumes_and_both_baselines(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--n_devices", "2"], "item 11"),
+    # --n_devices above 1 needs the launcher (the id is the one the case
+    # has always had, from when the mesh was not ported).
+    pytest.param(["--n_devices", "2"], "torch.distributed.run --standalone",
+                 id="flag0-item 11"),
     # --plot_domain is refused where matplotlib does not import, as on the
     # card's host (the id is the one the case has always had).
     pytest.param(["--plot_domain"], "--plot_domain needs matplotlib",
