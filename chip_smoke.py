@@ -47,8 +47,9 @@ Phases; any failure exits non-zero before the result line:
 6. Training path: ``train_model`` on simple_beam / "dpivae" with
    use_pallas=True at full width (n_train 1,024, batch 64, 16 MC samples,
    validation of 512 points x 64 MC every 10 iterations, as bench.py
-   times it), n_iter cut from 20,000 to 1,000 (2,000 before the single
-   run of phase 8 joined, for the time limit). The forward kernel must
+   times it), n_iter cut from 20,000 to 500 (2,000 before the single
+   run of phase 8 joined, 1,000 before phase 15, for the time limit).
+   The forward kernel must
    launch n_iter + n_iter / val_freq times and the hidden kernel n_iter
    times; every active log row must be finite, the last ELBO_val below
    the first, and the first 10 train rows must agree with a
@@ -94,7 +95,7 @@ Phases; any failure exits non-zero before the result line:
    kernel at 66 x 1,024, and FusedMLPFunction's backward under
    torch.func.vmap(grad) at 66 x 1,024, each with its bound at the summed
    rows; then ``train_sweep`` at bench.py's sweep workload (66 members,
-   λ = linspace(-1, 1, 66), patience 10^9), n_iter cut from 2,000 to 500,
+   λ = linspace(-1, 1, 66), patience 10^9), n_iter cut from 2,000 to 300,
    once with use_pallas "auto" (the plain path in sweeps) and once with
    use_pallas=True, each after a 20-step warm-up: every chunk's forward
    launches n_iter + n_iter / val_freq times and its hidden kernel n_iter
@@ -103,7 +104,7 @@ Phases; any failure exits non-zero before the result line:
    run from that member's data, init and generator; member-steps/s of
    both, and a profile of one batched step. Last, the disentanglement
    study (``dpivae_tpu_torch.scripts.disentanglement_metric``) in
-   process, 11 λ x 6 runs, n_iter cut from 20,000 to 500, linear probes,
+   process, 11 λ x 6 runs, n_iter cut from 20,000 to 300, linear probes,
    output under build/: its score rows and files, then a second call on
    the same output that resumes every chunk (no training step, no kernel
    launch) and writes the same scores.
@@ -164,7 +165,27 @@ Phases; any failure exits non-zero before the result line:
    (``disentanglement_metric``, 11 λ x 6 runs, linear probes, 200 steps)
    with ``--n_devices 1`` against the study without the flag: the same
    disentanglement_score.csv. The process group is destroyed at the end.
-15. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+15. The decode's options in sweeps, a CNN-encoder model and the example
+   programs. Phase 10's 66-member damped_oscillator sweep with
+   use_pallas=True and remat_decode=True, 200 steps after a 20-step
+   warm-up, against the same sweep without remat (in turns): remat's
+   forward launches 2 n_iter + n_iter / val_freq times (the forward, then
+   the recompute in the backward) and its hidden kernel n_iter times, the
+   first 10 rows agree, the params' max difference printed, member-steps/s
+   of both, and torch.cuda.max_memory_allocated over one warm batched step
+   of each (reset between), whole and with mc_chunk 4. The same sweep with
+   compute_dtype="bfloat16" and "auto": no launch, finite rows. damped_oscillator / "dpivae" with
+   the Conv1d encoder trunk (encoder_x="CNN"), 200 steps with
+   use_pallas=True (n_iter + n_iter / val_freq and n_iter launches)
+   against use_pallas=False: finite rows, the first 10 agree. Then the
+   examples in process: ``examples.custom_case`` (500 steps: "auto" picks
+   the kernels, 550 / 500 launches, the ELBO falls, the test R² printed),
+   ``examples.hyper_search`` (200 steps, 2 seeds: finite, the ranking
+   printed) and ``examples.serve_http`` serving phase 11's artifact on
+   127.0.0.1 from a thread: 20 POSTs of phase 4's 512-point request, each
+   equal to ``ServedPredictor`` called directly with the same seed, the
+   median wall of both, and 4 concurrent clients equal to serial calls.
+16. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -195,19 +216,25 @@ SEED = 0
 RTOL = ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_TOL = 1e-4
-N_ITER = 1_000   # cut from the preset's 20,000 for the time limit
+N_ITER = 500   # cut from the preset's 20,000 for the time limit
 N_ITER_BRIDGE = 500   # cut further for the time limit
 N_ITER_SINGLE_RUN = 1_000   # cut from the preset's 20,000 for the limit
 N_ITER_DECODE_OPTIONS = 200
 N_ITER_WARM = 20   # a warm-up run before each timed options or sweep run
-N_ITER_SWEEP = 500   # bench.py's sweep workload's 2,000, cut for the limit
-N_ITER_STUDY = 500   # the study's 20,000, cut for the limit
+N_ITER_SWEEP = 300   # bench.py's sweep workload's 2,000, cut for the limit
+N_ITER_STUDY = 300   # the study's 20,000, cut for the limit
 SWEEP_MEMBERS = 66
 N_ITER_TRANSFER = 300   # the transfer study's 20,000, cut for the limit
 N_ITER_TRANSFER_KERNEL = 100   # the use_pallas=True transfer grid's
 TRANSFER_RUNS = 6   # the study's own: 6 runs x 4 domains = 24 members
 N_ITER_MESH = 500   # the mesh's data-parallel run, cut for the limit
 N_ITER_MESH_SWEEP = 200   # the mesh's sweep and study, cut for the limit
+N_ITER_SWEEP_OPTIONS = 200   # phase 15's sweeps with remat and bf16
+MC_CHUNK_MEMORY = 4   # phase 15's chunked step: 4 chunks of 16 samples
+N_ITER_CNN = 200   # phase 15's CNN-encoder model, cut for the limit
+N_ITER_CUSTOM = 500   # the custom case example's 2,000, cut for the limit
+N_ITER_HYPER = 200   # the hyper search example's 2,000, cut for the limit
+N_HTTP_REQUESTS = 20
 # BASELINE.md's JAX transfer study (extrapolation, 20,000 steps, reference
 # scale), mean ± std of the test R² over its 24 folds: a quality
 # reference printed beside this run's, not a threshold.
@@ -479,7 +506,9 @@ def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
         if not ok:
             failures.append(f"fused_mlp disagrees with plain at {name}")
         results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=(pair_ms if name in PAIR_SHAPES
+                                         else None))
     return results
 
 
@@ -1478,19 +1507,16 @@ def _sweep(ops, failures, card):
                                 for k, t in times.items()}
 
 
-def _profile_sweep_step(cfg, case, lambdas, data=None):
-    """torch.profiler's view of one warm member-batched train step, of
-    len(lambdas) members: each member's datasets from its generator, or
-    ``data``, the stacked (train, val) of a data sweep."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _member_run(cfg, case, lambdas, data=None):
+    """A ``MemberTrainer`` of len(lambdas) members and their generators:
+    each member's datasets from its generator, or ``data``, the stacked
+    (train, val) of a data sweep."""
     from dpivae_tpu_torch.sweep.sweep import _generators, _keys, \
         _member_start
     from dpivae_tpu_torch.train.setup import make_template_model
     from dpivae_tpu_torch.train.train import MemberTrainer, stack_params
 
-    m = len(lambdas)
-    gens = _generators(_keys(SEED, range(m)), "cuda")
+    gens = _generators(_keys(SEED, range(len(lambdas))), "cuda")
     template = make_template_model(cfg, case, device="cuda")
     starts = [_member_start(cfg, case, template, g, None if data is None
                             else tuple(tuple(a[j] for a in d[:3])
@@ -1501,6 +1527,16 @@ def _profile_sweep_step(cfg, case, lambdas, data=None):
     run = MemberTrainer(cfg, case, stack_params([s[2] for s in starts]),
                         stack(0), stack(1), torch.tensor(lambdas,
                                                          device="cuda"))
+    return run, gens
+
+
+def _profile_sweep_step(cfg, case, lambdas, data=None):
+    """torch.profiler's view of one warm member-batched train step, of
+    len(lambdas) members (``_member_run``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = len(lambdas)
+    run, gens = _member_run(cfg, case, lambdas, data)
     for i in range(5):
         run.step(i, generators=gens)
     torch.cuda.synchronize()
@@ -1629,7 +1665,8 @@ def _compare(what, got, want, failures, rtol=RTOL, atol=ATOL):
 
 def _artifact(ops, failures, card, setup, request):
     """The serving artifact (phase 11). Returns the forward launches of the
-    live kernel Predictor's counted requests."""
+    live kernel Predictor's counted requests, and the loaded simple_beam
+    artifact."""
     import tempfile
     import warnings
 
@@ -1741,7 +1778,7 @@ def _artifact(ops, failures, card, setup, request):
     if not (cold and still_cold):
         failures.append("artifact: the export left constants in the "
                         "surrogate's cache")
-    return launches["kernel"]
+    return launches["kernel"], served
 
 
 def _transfer(ops, failures, card):
@@ -2207,6 +2244,284 @@ def _mesh(ops, failures, card):
     return tuple(a + b + c for a, b, c in zip(train, sweep, studies))
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the decode's options in sweeps, a CNN-encoder model, and the
+# three example programs
+# ----------------------------------------------------------------------
+
+def _step_peak_mb(run, gens, step):
+    """(peak, peak above the allocation before it) of one warm batched
+    train step, in MB: torch.cuda.max_memory_allocated, reset just
+    before."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run.step(step, generators=gens)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 1e6, (peak - before) / 1e6
+
+
+def _sweep_decode_options(ops, failures, card):
+    """remat_decode in phase 10's 66-member sweep with the kernels, against
+    the same sweep without it, then the sweep in bf16 with "auto". Returns
+    the (forward, hidden) launches of the counted runs."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.sweep import train_sweep
+
+    case = get_case("damped_oscillator")
+    base = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, patience=10**9,
+        n_iter=N_ITER_SWEEP_OPTIONS, use_pallas=True)
+    lambdas = torch.linspace(-1.0, 1.0, SWEEP_MEMBERS).tolist()
+    n, vf = base.n_iter, base.val_freq
+    configs = {"remat": base.replace(remat_decode=True), "plain": base}
+    want = {"remat": (2 * n + n // vf, n), "plain": (n + n // vf, n)}
+    for cfg in configs.values():
+        train_sweep(cfg.replace(n_iter=N_ITER_WARM), case, lambdas,
+                    seed=SEED + 1, device="cuda")
+    runs, times, launches = {}, {}, {}
+    for name, cfg in configs.items():  # in turns: remat, then plain
+        torch.cuda.synchronize()
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        runs[name] = train_sweep(cfg, case, lambdas, seed=SEED,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = (ops.fused_mlp.launches,
+                          ops.fused_mlp_hidden.launches)
+        print(f"sweep damped_oscillator / 'dpivae', use_pallas=True, "
+              f"remat_decode={name == 'remat'} ({card}): {SWEEP_MEMBERS} "
+              f"members x {n} steps in {times[name]:.2f} s (warm): "
+              f"{SWEEP_MEMBERS * n / times[name]:.1f} member-steps/s; "
+              f"launches fused_mlp_fwd {launches[name][0]}, "
+              f"fused_mlp_hidden {launches[name][1]} (expected "
+              f"{want[name][0]}, {want[name][1]})")
+        if launches[name] != want[name]:
+            failures.append(f"sweep {name}: launches {launches[name]}, "
+                            f"expected {want[name]}")
+        logs = runs[name].logs
+        if not (torch.isfinite(logs.train).all()
+                and torch.isfinite(logs.val).all()):
+            failures.append(f"sweep {name}: a log row is not finite")
+    remat, plain = runs["remat"], runs["plain"]
+    rows = float((remat.logs.train[:, :N_ROWS_COMPARED]
+                  - plain.logs.train[:, :N_ROWS_COMPARED]).abs().max())
+    params = max(float((remat.params[k] - v).abs().max())
+                 for k, v in plain.params.items())
+    print(f"sweep remat_decode vs without: first {N_ROWS_COMPARED} rows of "
+          f"all members max_abs_err {rows:.3e} (rtol {TRAIN_TOL} atol "
+          f"{TRAIN_TOL}); params after {n} steps max_abs_diff {params:.3e}")
+    if not torch.allclose(remat.logs.train[:, :N_ROWS_COMPARED],
+                          plain.logs.train[:, :N_ROWS_COMPARED],
+                          rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        failures.append("sweep: remat_decode disagrees with the plain "
+                        "decode")
+
+    # Memory: what remat is for. One warm batched step of each, whole
+    # and in MC chunks of MC_CHUNK_MEMORY samples.
+    for mc_chunk in (None, MC_CHUNK_MEMORY):
+        peaks = {}
+        for name, cfg in configs.items():
+            run, gens = _member_run(cfg.replace(mc_chunk=mc_chunk), case,
+                                    lambdas)
+            run.step(0, generators=gens)
+            peaks[name] = _step_peak_mb(run, gens, 1)
+            del run, gens
+        print(f"one batched step of {SWEEP_MEMBERS} members, mc_chunk "
+              f"{mc_chunk} ({card}), torch.cuda.max_memory_allocated: "
+              f"remat_decode {peaks['remat'][0]:.1f} MB "
+              f"({peaks['remat'][1]:.1f} MB above the allocation before the "
+              f"step), without {peaks['plain'][0]:.1f} MB "
+              f"({peaks['plain'][1]:.1f} MB above)")
+
+    bf16 = base.replace(use_pallas="auto", compute_dtype="bfloat16")
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    t0 = time.perf_counter()
+    res = train_sweep(bf16, case, lambdas, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    got = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    finite = bool(torch.isfinite(res.logs.train).all()
+                  and torch.isfinite(res.logs.val).all())
+    print(f"sweep compute_dtype='bfloat16', use_pallas='auto' ({card}): "
+          f"{SWEEP_MEMBERS} members x {n} steps in {took:.2f} s (first "
+          f"steps included): {SWEEP_MEMBERS * n / took:.1f} member-steps/s; "
+          f"launches {got[0]}, {got[1]} (expected 0, 0); log rows "
+          f"{'finite' if finite else 'NOT FINITE'}; final ELBO_val mean "
+          f"{float(res.logs.val[:, -1, 0].mean()):.4f} (f32 with the "
+          f"kernels {float(plain.logs.val[:, -1, 0].mean()):.4f})")
+    if got != (0, 0):
+        failures.append(f"bf16 sweep: launches {got}, expected none")
+    if not finite:
+        failures.append("bf16 sweep: a log row is not finite")
+    return tuple(a + b for a, b in zip(launches["remat"], launches["plain"]))
+
+
+def _cnn_model(ops, failures, card):
+    """damped_oscillator / "dpivae" with the Conv1d encoder trunk trained
+    with the kernels against use_pallas=False. Returns the kernel run's
+    (forward, hidden) launches."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.train import init_params, setup_model, train_model
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    case = get_case("damped_oscillator")
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, patience=10**9, n_iter=N_ITER_CNN,
+        encoder_x="CNN", use_pallas=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtr, dva = (sample_response(case, gen, m, sample_dist=case.gt_dist(),
+                                device="cuda")
+                for m in (cfg.n_train, cfg.n_val))
+    logs, launches = {}, {}
+    params = None
+    for pallas in (True, False):
+        run_cfg = cfg.replace(use_pallas=pallas)
+        model = setup_model(run_cfg, case, dtr, device="cuda")
+        if params is None:
+            params = init_params(run_cfg, model, device="cuda")
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        t0 = time.perf_counter()
+        _, logs[pallas] = train_model(
+            run_cfg, model, case, dtr, dva, params=params,
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+            device="cuda")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        launches[pallas] = (ops.fused_mlp.launches,
+                            ops.fused_mlp_hidden.launches)
+        print(f"CNN encoder model damped_oscillator / 'dpivae', use_pallas="
+              f"{pallas} ({card}): {cfg.n_iter} steps in {took:.2f} s "
+              f"(first steps included); launches {launches[pallas][0]}, "
+              f"{launches[pallas][1]}")
+    n = cfg.n_iter
+    want = (n + n // cfg.val_freq, n)
+    got, ref = (logs[p].train[:N_ROWS_COMPARED] for p in (True, False))
+    worst = float((got - ref).abs().max())
+    _, elbo_val = logs[True].scalars("ELBO_val")
+    print(f"CNN encoder model: kernel vs plain first {N_ROWS_COMPARED} rows "
+          f"max_abs_err {worst:.3e} (rtol {TRAIN_TOL} atol {TRAIN_TOL}); "
+          f"ELBO_val {elbo_val[0]:.4f} -> {elbo_val[-1]:.4f}; launches "
+          f"expected {want[0]}, {want[1]}")
+    if launches[True] != want or launches[False] != (0, 0):
+        failures.append(f"CNN model: launches {launches}")
+    if not all(torch.isfinite(lg.train).all() for lg in logs.values()):
+        failures.append("CNN model: a log row is not finite")
+    if not torch.allclose(got, ref, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        failures.append("CNN model: the kernel run disagrees with plain")
+    return launches[True]
+
+
+def _examples(ops, failures, card, served, request):
+    """The custom case, the hyper search and the HTTP host of phase 11's
+    artifact (``served``), asked phase 4's ``request``. Returns the
+    (forward, hidden) launches of the custom case's run."""
+    import concurrent.futures
+    import urllib.request
+
+    import numpy as np
+
+    from dpivae_tpu_torch.examples import custom_case, hyper_search, \
+        serve_http
+
+    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+    t0 = time.perf_counter()
+    run = custom_case.main(["--n_iter", str(N_ITER_CUSTOM)])
+    took = time.perf_counter() - t0
+    launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+    n = N_ITER_CUSTOM
+    want = (n + n // 10, n)
+    _, elbo = run.logs.scalars("ELBO")
+    r2 = float(np.asarray(run.metrics["cantilever"]["R2"]).reshape(-1)[0])
+    print(f"custom_case example ({card}): {n} steps, program {took:.2f} s; "
+          f"use_pallas 'auto' launches {launches[0]}, {launches[1]} "
+          f"(expected {want[0]}, {want[1]}: the kernels); ELBO "
+          f"{elbo[0]:.3f} -> {elbo[-1]:.3f}; damage-label test R2 {r2:.4f}")
+    if launches != want:
+        failures.append(f"custom_case: launches {launches}, expected {want}")
+    if not (np.isfinite(elbo).all() and elbo[-1] < elbo[0]
+            and math.isfinite(r2)):
+        failures.append("custom_case: the ELBO did not fall or R2 is not "
+                        "finite")
+
+    t0 = time.perf_counter()
+    search = hyper_search.main(["--n_iter", str(N_ITER_HYPER),
+                                "--n_runs", "2"])
+    print(f"hyper_search example ({card}): {search.result.n_members} members "
+          f"x {N_ITER_HYPER} steps, program {time.perf_counter() - t0:.2f} "
+          f"s; ranking {search.order.tolist()}")
+    if not np.isfinite(search.final).all():
+        failures.append("hyper_search: a final loss is not finite")
+
+    server = serve_http.serve(served, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+    try:
+        x, c = (a.cpu().numpy() for a in request)
+        n_points = x.shape[0]
+
+        def post(seed):
+            body = json.dumps({"x": x.tolist(), "c": c.tolist(),
+                               "seed": seed}).encode()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    url, data=body), timeout=120) as resp:
+                out = json.loads(resp.read())
+            return ({k: np.asarray(v, np.float32) for k, v in out.items()},
+                    1e3 * (time.perf_counter() - t0))
+
+        def direct(seed):
+            t0 = time.perf_counter()
+            out = served(x, c, seed=seed)
+            return out, 1e3 * (time.perf_counter() - t0)
+
+        http_ms, direct_ms, worst = [], [], 0.0
+        post(0)
+        direct(0)
+        for seed in range(N_HTTP_REQUESTS):
+            got, ms = post(seed)
+            want, d_ms = direct(seed)
+            http_ms.append(ms)
+            direct_ms.append(d_ms)
+            for k, w in want.items():
+                worst = max(worst, float(np.abs(got[k] - w).max()))
+                if not np.array_equal(got[k], w):
+                    failures.append(f"serve_http: {k} at seed {seed} differs "
+                                    f"from the direct call")
+        serial = [post(100 + i)[0] for i in range(4)]
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            concurrent_out = [f.result() for f in [
+                pool.submit(post, 100 + i) for i in range(4)]]
+        same = all(np.array_equal(a[k], b[0][k]) for a, b in
+                   zip(serial, concurrent_out) for k in a)
+        print(f"serve_http example ({card}): {N_HTTP_REQUESTS} POSTs of "
+              f"{n_points} points x {served.meta['n_mc']} MC, "
+              f"{len(served.outputs)} outputs: max_abs_err vs "
+              f"ServedPredictor called directly {worst:.3e} (equal "
+              f"expected); median wall through HTTP "
+              f"{statistics.median(http_ms):.3f} ms, direct "
+              f"{statistics.median(direct_ms):.3f} ms; 4 concurrent clients "
+              f"{'equal' if same else 'NOT EQUAL'} to serial calls")
+        if not same:
+            failures.append("serve_http: concurrent answers differ from "
+                            "serial ones")
+    finally:
+        server.shutdown()
+        server.server_close()
+    return launches
+
+
+def _phase15(ops, failures, card, served, request):
+    """Phase 15. Returns the (forward, hidden) launches of its paths."""
+    sweeps = _sweep_decode_options(ops, failures, card)
+    cnn = _cnn_model(ops, failures, card)
+    examples = _examples(ops, failures, card, served, request)
+    return tuple(a + b + c for a, b, c in zip(sweeps, cnn, examples))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2294,7 +2609,7 @@ def main() -> int:
 
     # This slice's paths: the serving artifact, then the transfer study
     # (bridge, both presets, 24 members each) and its use_pallas=True grid.
-    a_fwd = _artifact(ops, failures, card, serve_setup, request)
+    a_fwd, served = _artifact(ops, failures, card, serve_setup, request)
     (t_fwd, t_hidden), transfer_steps = _transfer(ops, failures, card)
     print(f"transfer grid member-steps/s ({card}): use_pallas 'auto' "
           f"(plain) {transfer_steps['auto']:.1f}, use_pallas=True (kernels) "
@@ -2307,22 +2622,28 @@ def main() -> int:
     # This slice's paths: the device mesh (one-rank NCCL group).
     m_fwd, m_hidden = _mesh(ops, failures, card)
 
+    # This slice's paths: remat and bf16 in sweeps, a CNN-encoder model,
+    # and the three example programs.
+    e_fwd, e_hidden = _phase15(ops, failures, card, served, request)
+
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
                  + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd
-                 + f_fwd + m_fwd)
+                 + f_fwd + m_fwd + e_fwd)
     hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
-                    + w_hidden + y_hidden + t_hidden + m_hidden)
+                    + w_hidden + y_hidden + t_hidden + m_hidden + e_hidden)
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
           f"{serve_launches} + training {fwd_launches}, bridge serving "
           f"{b_launches} + training {b_fwd}, damped_oscillator serving "
           f"{o_launches}, single run {s_fwd}, remat and bf16 {d_fwd}, "
           f"sweep {w_fwd} (member-batched), study {y_fwd}, artifact phase "
           f"{a_fwd} (the live kernel Predictor), transfer {t_fwd} "
-          f"(member-batched), figures {f_fwd}, mesh {m_fwd} = {fwd_total}; "
+          f"(member-batched), figures {f_fwd}, mesh {m_fwd}, remat sweeps, "
+          f"CNN model and examples {e_fwd} = {fwd_total}; "
           f"fused_mlp_hidden simple_beam "
           f"training {hidden_launches} + bridge training {b_hidden} + single "
           f"run {s_hidden} + remat and bf16 {d_hidden} + sweep {w_hidden} + "
-          f"study {y_hidden} + transfer {t_hidden} + mesh {m_hidden} = "
+          f"study {y_hidden} + transfer {t_hidden} + mesh {m_hidden} + "
+          f"remat sweeps, CNN model and examples {e_hidden} = "
           f"{hidden_total}")
 
     if failures:
@@ -2344,7 +2665,7 @@ def main() -> int:
         "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
-        "library_ms": None,
+        "library_ms": serving["library_ms"],
     }, {
         "name": "fused_mlp_hidden",
         "route": "cuda",

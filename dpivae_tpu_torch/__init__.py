@@ -10,9 +10,9 @@ against; module names mirror it so each counterpart is easy to find:
   (dpivae_tpu/physics/).
 - ``dpivae_tpu_torch.cases``    — the ``simple_beam``,
   ``damped_oscillator`` and ``bridge`` cases (dpivae_tpu/cases/).
-- ``dpivae_tpu_torch.ops``      — gradient reversal, MVN sampling and the
-  hand-written CUDA fused-MLP kernels with their autograd function
-  (dpivae_tpu/ops/).
+- ``dpivae_tpu_torch.ops``      — gradient reversal, MVN sampling, the
+  hand-written CUDA fused-MLP kernels with their autograd function, and
+  the decode's recompute (dpivae_tpu/ops/).
 - ``dpivae_tpu_torch.models``   — encoders, decoders and ``DPIVAE``
   (dpivae_tpu/models/).
 - ``dpivae_tpu_torch.train``    — ``setup_model``/``init_params``, the
@@ -27,6 +27,8 @@ against; module names mirror it so each counterpart is easy to find:
   ``disentanglement_metric`` and ``regression_comparison``, the
   programs of scripts/0_single_run.py, 1_disentanglement_metric.py and
   2_regression_comparison.py.
+- ``dpivae_tpu_torch.examples`` — ``hyper_search``, ``custom_case``,
+  ``serve_http`` and ``multichip_sweep``, the programs of examples/.
 - ``dpivae_tpu_torch.convert``  — JAX params pytree and fitted scalers ->
   this package's.
 

@@ -17,7 +17,8 @@ Both models are ported, S (one joint encoder) and P (three per-block
 encoders over the same x), each with the dense or the Conv1d encoder
 trunk, for sampling and for the training loss (with the MC-chunked form
 of ``mc_chunk``), and with the decode's two options: ``remat_decode``
-(the decode recomputed in the backward, ``torch.utils.checkpoint``) and
+(the decode recomputed in the backward, ``ops.remat.recompute``, which
+composes with the sweeps' ``torch.func`` transforms) and
 ``compute_dtype="bfloat16"`` (the decode's MLPs and physics in bf16).
 """
 
@@ -30,7 +31,6 @@ from typing import Callable, Collection, Mapping, Optional, Tuple
 import torch
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from dpivae_tpu_torch.models.decoders import (
     DECODER_X_HIDDEN,
@@ -44,6 +44,7 @@ from dpivae_tpu_torch.models.encoders import (
     gaussian_encoder_sample,
 )
 from dpivae_tpu_torch.ops.mvn import mvn_log_prob
+from dpivae_tpu_torch.ops.remat import recompute
 from dpivae_tpu_torch.utils import (
     GAUSSIAN_CONST,
     DeviceLike,
@@ -59,6 +60,9 @@ DECODE_PARTS = ("xh_p", "xh_d", "c", "y")
 # The decode outputs each slot of ``sample``'s 9-tuple reads.
 _SLOT_PARTS = {0: ("xh_p", "xh_d"), 1: ("xh_p",), 2: ("xh_d",), 3: ("c",),
                4: ("y",)}
+# The part each output of the decode's 6-tuple belongs to.
+_OUTPUT_PARTS = ("xh_p", "xh_d", "c", "c", "y", "y")
+_DECODERS = ("decoder_x", "decoder_c", "decoder_y")
 _COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 # (slot, noise name, model width) of ``sample``'s observation noise, in
 # the order it is drawn.
@@ -187,7 +191,7 @@ class DPIVAE:
     # the stored params stay f32, and the decode's outputs return to f32.
     compute_dtype: Optional[str] = None
     # Recompute the decode in the backward instead of keeping its
-    # activations (torch.utils.checkpoint, non-reentrant)
+    # activations (ops.remat.recompute)
     remat_decode: bool = False
     # MC chunking of the training loss's decode; sampling ignores it
     mc_chunk: Optional[int] = None
@@ -362,17 +366,36 @@ class DPIVAE:
         only the outputs named in ``parts`` (a subset of DECODE_PARTS; "c"
         and "y" each name a pair) and None in the others' places.
 
-        With ``remat_decode`` the decode is one checkpointed region
-        (non-reentrant): the backward recomputes its activations from the
-        latents, so with the kernel on a train step launches the forward
-        kernel twice. The decode draws no random numbers, so no RNG state
-        is kept for the recompute.
+        With ``remat_decode`` the decode is one recompute region
+        (``ops.remat.recompute``, over the latents and the decoders'
+        parameters): the backward recomputes its activations from them, so
+        with the kernel on a train step launches the forward kernel twice.
+        It composes with ``torch.func.vmap(grad(...))``, so the sweeps run
+        it member-batched. The decode draws no random numbers, so no RNG
+        state is kept for the recompute.
         """
-        if self.remat_decode:
-            return checkpoint(self._decode_impl, params, zx_in, zc, zy,
-                              grl_alpha, parts, use_reentrant=False,
-                              preserve_rng_state=False)
-        return self._decode_impl(params, zx_in, zc, zy, grl_alpha, parts)
+        if not self.remat_decode:
+            return self._decode_impl(params, zx_in, zc, zy, grl_alpha, parts)
+        keep = [i for i, p in enumerate(_OUTPUT_PARTS) if p in parts]
+        names, weights = zip(*(
+            (f"params.{d}.{k}", w) for d in _DECODERS
+            for k, w in getattr(params, d).named_parameters()))
+        bound = _BoundParams(params)
+        # A tensor strength (a sweep member's) enters as a constant input.
+        consts = (grl_alpha,) if isinstance(grl_alpha, torch.Tensor) else ()
+
+        def run(zx_in, zc, zy, *rest):
+            alpha = rest[len(names)] if consts else grl_alpha
+            out = functional_call(
+                bound, dict(zip(names, rest[:len(names)])),
+                (self, "_decode_impl", zx_in, zc, zy, alpha, parts))
+            return tuple(out[i] for i in keep)
+
+        computed = recompute(run, (zx_in, zc, zy, *weights), consts)
+        out = [None] * len(_OUTPUT_PARTS)
+        for i, t in zip(keep, computed):
+            out[i] = t
+        return tuple(out)
 
     def _decode_impl(self, params: DPIVAEParams, zx_in, zc, zy, grl_alpha,
                      parts):

@@ -13,7 +13,9 @@ at a time:
   ``TRACEABLE_HYPER_FIELDS`` are per-member values;
 - members stack on a leading axis; ``train.train.MemberTrainer`` runs the
   single-member model code under ``torch.func.vmap`` and the fused-MLP
-  kernels launch once per call for all members.
+  kernels launch once per call for all members; the decode's options
+  (``remat_decode``, through ``ops.remat.recompute``, and
+  ``compute_dtype="bfloat16"``) run member-batched too.
 
 A member's identity (``SweepResult.keys``) is its (seed, id) pair: the
 JAX package's per-member PRNG key. Chunks persist under ``checkpoint_dir``
@@ -37,7 +39,10 @@ refused with a mesh, as in the JAX package.
 
 The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
 caches only warm or cache compiled programs; eager PyTorch compiles
-nothing, so they have no counterpart.
+nothing, so they have no counterpart. Neither have ``member_step_cost``,
+``_warn_if_over_budget`` and ``_warn_if_dir_large``: they size chunks
+and warn against a TPU transport's per-program deadline, which a card
+does not have (``auto_chunk_size`` sizes chunks by free memory).
 """
 
 from __future__ import annotations

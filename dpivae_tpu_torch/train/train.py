@@ -32,8 +32,11 @@ divisor, so the sum of the ranks' is the global row, and the early stop
 reads the same number on every rank. ``use_pallas="auto"`` resolves on
 the global training shape, as in the JAX package.
 
-Not ported: progress narration, scan unrolling, the executable cache and
-a CUDA-graph or compiled step loop (ROADMAP.md, queue 1, item 5).
+``train_model(progress=...)`` narrates one line per validation block on
+stderr (``make_progress_printer``), at the block's host read.
+
+Not ported: scan unrolling, the executable cache and a CUDA-graph or
+compiled step loop (ROADMAP.md, queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import sys
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -124,6 +128,46 @@ def _sample_batch(generator: torch.Generator, n_train: int, n_batch: int,
     """Indices of a uniform batch without replacement: the top n_batch of
     n_train iid uniforms, drawn from ``generator``."""
     return torch.topk(rand((n_train,), generator, device), n_batch).indices
+
+
+def make_progress_printer(n_iter: int, val_freq: int):
+    """The narration callback (counterpart of
+    dpivae_tpu/train/train.py:135-158): ``cb(it, row, val_row, counter,
+    active)`` prints the block's first train row (TRAIN_COLUMNS order),
+    its validation row (VAL_COLUMNS order) and the early-stop counter as
+    one line on stderr, ending it only at the last block; nothing when not
+    ``active``."""
+
+    def cb(it, row, val_row, counter, active):
+        if not bool(active):
+            return
+        it = int(it)
+        f = lambda v: f"{float(v):.4g}"
+        line = (
+            f"iter {it}/{n_iter} "
+            f"ELBO_loss={f(row[0])} ELBO_val={f(val_row[0])} "
+            f"KL_x={f(row[1])} Rx={f(row[4])} Rc={f(row[5])} Ry={f(row[6])} "
+            f"Rx_val={f(val_row[4])} Rc_val={f(val_row[5])} "
+            f"Ry_val={f(val_row[6])} reg={f(row[7])} "
+            f"lambda_x_i={f(row[8])} beta_x={f(row[9])} beta_c={f(row[10])} "
+            f"beta_y={f(row[11])} sigma_x={f(row[12])} counter={int(counter)}"
+        )
+        last = it + val_freq >= n_iter
+        print("\r" + line, end="\n" if last else "", file=sys.stderr,
+              flush=True)
+
+    return cb
+
+
+def resolve_progress(progress, config: TrainConfig, device: torch.device,
+                     mesh: Optional[Mesh]):
+    """``train_model``'s ``progress`` as the JAX package resolves it
+    (dpivae_tpu/train/train.py:552-558): "auto" narrates only on the CPU,
+    at ``n_iter`` >= 5000 and without a mesh; anything else is kept."""
+    if progress == "auto":
+        return (mesh is None and device.type == "cpu"
+                and config.n_iter >= 5000)
+    return progress
 
 
 class _DataShard(NamedTuple):
@@ -260,7 +304,8 @@ class Trainer:
 
 
 def build_train_fn(config: TrainConfig, case: Case,
-                   mesh: Optional[Mesh] = None, dp_axis: str = "dp"):
+                   mesh: Optional[Mesh] = None, dp_axis: str = "dp",
+                   progress=False):
     """Returns ``train_fn(params, generator, data_train, data_val,
     lambda_g0) -> (params, TrainLogs)``.
 
@@ -271,11 +316,21 @@ def build_train_fn(config: TrainConfig, case: Case,
     run is data-parallel over ``dp_axis`` (``n_batch`` and ``n_val`` must
     divide by its size): every rank passes the whole data and a generator
     seeded as the others', and the params are broadcast from the axis's
-    first rank before the first step.
+    first rank before the first step. ``progress``: True prints
+    ``make_progress_printer``'s line per validation block; a callable gets
+    ``(iter, train_row, val_row, es_counter, active)``, the rows as numpy,
+    at the block's host read (not with a mesh).
     """
+    if progress and mesh is not None:
+        raise ValueError(
+            "progress narration is not supported with mesh= (JAX rejects "
+            "ordered debug callbacks in multi-device programs); pass "
+            "progress=False or drop the mesh")
     _data_shard(config, mesh, dp_axis)
     n_iter, vf = config.n_iter, config.val_freq
     n_blocks = -(-n_iter // vf)
+    progress_cb = (make_progress_printer(n_iter, vf) if progress is True
+                   else (progress or None))
 
     def train_fn(params, generator, data_train, data_val, lambda_g0):
         params = copy.deepcopy(params)
@@ -295,6 +350,9 @@ def build_train_fn(config: TrainConfig, case: Case,
             val[block] = run.validate(start, generator=generator)
             es = early_stop_update(es, float(val[block, 0]), config.patience,
                                    config.min_delta)
+            if progress_cb is not None:
+                progress_cb(start, train[start].cpu().numpy(),
+                            val[block].cpu().numpy(), es.counter, True)
             if es.stopped:
                 stop_iter, live_blocks = start + 1, block + 1
                 break
@@ -314,7 +372,7 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
                 params: Optional[DPIVAEParams] = None,
                 generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, mesh: Optional[Mesh] = None,
-                dp_axis: str = "dp"):
+                dp_axis: str = "dp", progress="auto"):
     """Train a DPIVAE on ``device`` (None means CUDA).
 
     ``model`` (from ``setup_model``) initializes the params when none are
@@ -323,8 +381,10 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
     at random (with a mesh, rank 0's random seed on every rank). With
     ``mesh`` (its device of ``device``'s type) the run is data-parallel
     over ``dp_axis`` (``build_train_fn``); every rank calls this with the
-    same arguments and gets the same result. Returns (trained params,
-    logs).
+    same arguments and gets the same result. ``progress`` narrates each
+    validation block (``build_train_fn``); "auto" (``resolve_progress``)
+    only on the CPU at ``n_iter`` >= 5000 without a mesh. Returns (trained
+    params, logs).
     """
     device = resolve_device(device)
     if mesh is not None:
@@ -332,6 +392,7 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
             raise ValueError(f"the mesh is on {mesh.device}, training on "
                              f"{device}")
         device = mesh.device
+    progress = resolve_progress(progress, config, device, mesh)
     if generator is None:
         generator = torch.Generator(device=device)
         if config.use_seed:
@@ -348,7 +409,7 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
         raise ValueError(
             f"params are on {params.log_sigma_x.device}, training on {device}"
         )
-    train_fn = build_train_fn(config, case, mesh, dp_axis)
+    train_fn = build_train_fn(config, case, mesh, dp_axis, progress)
     return train_fn(params, generator, data_train, data_val, config.lambda_g0)
 
 
@@ -454,13 +515,6 @@ class MemberTrainer:
             raise ValueError(f"{sorted(bad)} cannot differ between members; "
                              f"allowed: {sorted(TRACEABLE_HYPER_FIELDS)}")
         self.config = config = member_config(config)
-        if config.remat_decode:
-            # torch.func.grad refuses the saved-tensor hooks of
-            # torch.utils.checkpoint (torch 2.13).
-            raise NotImplementedError(
-                "remat_decode is not supported in member-batched training: "
-                "torch.func.grad does not take torch.utils.checkpoint's "
-                "saved-tensor hooks")
         first = next(iter(params.values()))
         self.device = device = first.device
         self.n_members = m = first.shape[0]

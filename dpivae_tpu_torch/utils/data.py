@@ -1,5 +1,5 @@
 """Synthetic data generation (counterpart of dpivae_tpu/utils/data.py:
-32-73)."""
+20-73)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,35 @@ import torch
 
 from dpivae_tpu_torch.utils import DeviceLike, randn, resolve_device
 from dpivae_tpu_torch.utils.priors import factor_indices
+
+
+def test_train_split(n_train: int, n_test: int, data,
+                     generator: Optional[torch.Generator] = None):
+    """Split the arrays of ``data`` along their first axis into
+    ``n_train`` and ``n_test`` rows: ``[a_train, a_test, b_train, b_test,
+    ...]``, as scikit-learn's ``train_test_split`` (which the JAX package
+    wraps) returns them. The rows are a random permutation drawn from
+    ``generator`` (a CPU ``torch.Generator``; by default a fresh seed), not
+    scikit-learn's shuffle, which the port does not import. Each part is
+    of its input's type (numpy or tensor)."""
+    n_train, n_test = int(n_train), int(n_test)
+    n = len(data[0])
+    if n_train + n_test > n:
+        raise ValueError(f"n_train + n_test = {n_train + n_test} exceeds the "
+                         f"{n} rows")
+    if generator is None:
+        generator = torch.Generator()
+        generator.seed()
+    order = torch.randperm(n, generator=generator)
+    rows = (order[:n_train], order[n_train:n_train + n_test])
+    out = []
+    for a in data:
+        if len(a) != n:
+            raise ValueError("the arrays of data differ in length")
+        for r in rows:
+            out.append(a[r.to(a.device)] if isinstance(a, torch.Tensor)
+                       else a[r.numpy()])
+    return out
 
 
 def sample_response(

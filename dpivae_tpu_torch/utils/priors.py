@@ -22,6 +22,11 @@ def get_prior_dist(specs: Sequence) -> MarginalDistribution:
     )
 
 
+def interp_ground_truth(factors: Sequence) -> Tuple[List[float], List[float]]:
+    """The factors' bounds for plots and traversals: ([lb], [ub])."""
+    return [f.lb for f in factors], [f.ub for f in factors]
+
+
 def get_shapes_from_factors(factors: Sequence) -> Tuple[int, int, int, int, int]:
     """Count latent dims by type tag: (n_x, n_c, n_y, n_f, n_p); ``p``
     counts physical covariates (type == "c" and phys)."""

@@ -1,5 +1,5 @@
 """Invertible transforms (counterpart of dpivae_tpu/utils/transforms.py:
-24-197).
+24-241).
 
 Every transform has ``forward(z) -> (z', log_det)`` and ``inverse``, with
 the JAX package's log-det conventions (which follow the reference's,
@@ -130,3 +130,27 @@ class MaskedChain:
 
     def inverse(self, z) -> Tuple[torch.Tensor, torch.Tensor]:
         return self._apply(z, self.chain.inverse)
+
+
+class Flip:
+    """``transform`` with ``forward`` and ``inverse`` exchanged."""
+
+    def __init__(self, transform):
+        self.transform = transform
+
+    def forward(self, z):
+        return self.transform.inverse(z)
+
+    def inverse(self, z):
+        return self.transform.forward(z)
+
+
+class Identity:
+    """No-op transform: z unchanged, log_det 0."""
+
+    def forward(self, z) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = torch.as_tensor(z)
+        return z, z.new_zeros(z.shape[:-1])
+
+    def inverse(self, z) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.forward(z)

@@ -14,6 +14,7 @@ import torch
 
 from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
+from dpivae_tpu_torch.examples import custom_case, hyper_search, serve_http
 from dpivae_tpu_torch.models.vae import DPIVAE
 from dpivae_tpu_torch.parallel import make_mesh
 from dpivae_tpu_torch.scripts import (
@@ -49,7 +50,11 @@ def test_package_imports_no_jax_and_no_jax_package():
                      if m.split(".")[0] in banned)
         print(len(names), bad)
         walked = {"dpivae_tpu_torch.parallel.mesh",
-                  "dpivae_tpu_torch.examples.multichip_sweep"} <= set(names)
+                  "dpivae_tpu_torch.ops.remat",
+                  "dpivae_tpu_torch.examples.multichip_sweep",
+                  "dpivae_tpu_torch.examples.hyper_search",
+                  "dpivae_tpu_torch.examples.custom_case",
+                  "dpivae_tpu_torch.examples.serve_http"} <= set(names)
         sys.exit(1 if bad or len(names) < 40 or not walked else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -115,6 +120,11 @@ def _entry_points(tmp_path):
         "traversal_data": lambda: traversal_data(case, 0, 2, 4, gen),
         "DPIVAE.sample_prior": lambda: model.sample_prior(
             params, data[1], data[2], generator=gen),
+        "hyper_search example": lambda: hyper_search.main(
+            ["--n_iter", "2", "--n_runs", "1"]),
+        "custom_case example": lambda: custom_case.main(["--n_iter", "2"]),
+        "serve_http example": lambda: serve_http.main(
+            ["--artifact", str(tmp_path / "predictor.pt2"), "--port", "0"]),
     }
 
 
@@ -124,7 +134,8 @@ def _entry_points(tmp_path):
     "P model init_params", "load_model",
     "single_run CLI", "train_sweep", "train_hyper_sweep", "train_sweep_data",
     "disentanglement_metric CLI", "regression_comparison CLI",
-    "load_predictor", "traversal_data", "DPIVAE.sample_prior"])
+    "load_predictor", "traversal_data", "DPIVAE.sample_prior",
+    "hyper_search example", "custom_case example", "serve_http example"])
 def test_entry_point_without_device_needs_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; device=None runs on it")

@@ -4,7 +4,8 @@ the card: one launch over a member axis against the batched plain version
 ``torch.func.vmap(grad(...))`` through ``FusedMLPFunction`` against a
 per-member loop of plain autograd, one launch per batched call, and a
 short ``train_sweep`` with the kernels against the plain path and against
-a single ``train_model`` run of one member.
+a single ``train_model`` run of one member, and the same sweep with
+``remat_decode`` (its launches, and equal to the sweep without it).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. Run it on the card without the repository's conftest (which imports
@@ -152,3 +153,33 @@ def test_sweep_kernels_match_plain_and_a_single_run(device):
                           params=params, generator=g, device=device)
     torch.testing.assert_close(kernel[2, :10], logs.train[:10],
                                rtol=TRAIN_TOL, atol=TRAIN_TOL)
+
+
+@pytest.mark.parametrize("mc_chunk", [None, 8])
+def test_remat_sweep_launches_and_matches_plain_decode(device, mc_chunk):
+    """``remat_decode`` in a member-batched sweep with the kernels: the
+    forward launches twice a step (the forward, then the recompute in the
+    backward), once a validation, and the hidden kernel once a step, each
+    per MC chunk; the logs and params equal the sweep without remat."""
+    case = get_case("damped_oscillator")
+    lambdas = [-1.0, 0.0, 1.0]
+    # MC chunks of a training step (16 samples) and of a validation (64)
+    chunks, val_chunks = ((1, 1) if mc_chunk is None
+                          else (16 // mc_chunk, 64 // mc_chunk))
+    runs = {}
+    for remat in (True, False):
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        runs[remat] = train_sweep(
+            _cfg(case, use_pallas=True, remat_decode=remat,
+                 mc_chunk=mc_chunk), case, lambdas, seed=5, chunk_size=None,
+            device=device)
+        per_step = 2 if remat else 1
+        assert (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches) == (
+            per_step * 20 * chunks + 2 * val_chunks, 20 * chunks)
+    remat, plain = runs[True], runs[False]
+    assert torch.isfinite(remat.logs.train).all()
+    torch.testing.assert_close(remat.logs.train, plain.logs.train,
+                               rtol=TRAIN_TOL, atol=TRAIN_TOL)
+    for name, w in plain.params.items():
+        torch.testing.assert_close(remat.params[name], w, rtol=TRAIN_TOL,
+                                   atol=TRAIN_TOL, msg=name)

@@ -270,9 +270,6 @@ def test_data_sweep_and_guards():
                     chunk_callback=lambda *a: None, device="cpu")
     with pytest.raises(ValueError, match="cannot be swept"):
         train_hyper_sweep(cfg, CASE, {"n_iter": [1]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat_decode"):
-        train_sweep(cfg.replace(remat_decode=True), CASE, [0.1],
-                    device="cpu")
 
 
 @pytest.fixture(scope="module")
