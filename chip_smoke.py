@@ -75,12 +75,14 @@ Phases; any failure exits non-zero before the result line:
    Predictor whose eight outputs equal the in-memory model's under the
    same seed exactly; LIN, GPR, MLP and the VAE must score finite R², MSE
    and MAE, LIN's R² within 1e-3 of float64 least squares on the same
-   features; ``evaluate_model`` at 512 points x 512 MC must launch no
-   forward. The run passes --export_serving: the artifact it wrote, loaded
-   on the card, must give the checkpoint's plain Predictor's y at seed 0
-   for the test set. Then ``disentanglement_metric`` with linear probes and with
-   MLP probes (epochs cut from 300 to 30). Each stage's wall time is
-   printed.
+   features (the MLP is scikit-learn's fit, ``eval.fit_mlp_sklearn``: its
+   epochs printed); ``evaluate_model`` at 512 points x 512 MC must launch
+   no forward. The run passes --export_serving: the artifact it wrote,
+   loaded on the card, must give the checkpoint's plain Predictor's y at
+   seed 0 for the test set. Then ``disentanglement_metric`` with linear
+   probes, with the batched ``mlp_jax`` probes (epochs cut from 300 to
+   30) and with scikit-learn's ``mlp`` probes (their epochs printed). Each
+   stage's wall time is printed.
 9. The decode's options at bench.py's workload, 200 steps each, each
    after a warm-up run of 20 steps, so that its steps/s compare with phase
    6's warm run: remat_decode with use_pallas=True (the forward launches
@@ -107,7 +109,9 @@ Phases; any failure exits non-zero before the result line:
    process, 11 λ x 6 runs, n_iter cut from 20,000 to 300, linear probes,
    output under build/: its score rows and files, then a second call on
    the same output that resumes every chunk (no training step, no kernel
-   launch) and writes the same scores.
+   launch) and writes the same scores, and a third with --regressor mlp
+   (scikit-learn's MLPRegressor(128, 128) fit on every probe at once) that
+   resumes too: finite scores, the probes' epochs printed.
 11. The serving artifact (``serving.save_predictor``/``load_predictor``,
    ``torch.export``): phase 4's use_pallas=True model, all eight outputs,
    exported (on the CPU, through the plain decode, with one warning) and
@@ -129,7 +133,9 @@ Phases; any failure exits non-zero before the result line:
    with the default --baselines sklearn (member by member; its GPR fitted
    as scikit-learn fits it, float64 L-BFGS-B) resumes too: 120 finite
    rows, the same DPIVAE rows, LIN rows equal to the batched call's
-   (atol 1e-4); GPR mean R² of both choices beside BASELINE.md's.
+   (atol 1e-4); GPR and MLP mean R² of both choices beside BASELINE.md's,
+   the sklearn MLP's epochs per member (it is fitted by MLPRegressor's
+   rules, every member at once) and the baselines stage's seconds.
    ``export_member_predictor`` of one member against ``member_model``'s
    Predictor. Then ``train_sweep_data`` on the same 24 "DPIVAE-A"
    datasets (the P model), 100 steps after a 20-step warm-up, with "auto"
@@ -173,8 +179,14 @@ Phases; any failure exits non-zero before the result line:
    the recompute in the backward) and its hidden kernel n_iter times, the
    first 10 rows agree, the params' max difference printed, member-steps/s
    of both, and torch.cuda.max_memory_allocated over one warm batched step
-   of each (reset between), whole and with mc_chunk 4. The same sweep with
-   compute_dtype="bfloat16" and "auto": no launch, finite rows. damped_oscillator / "dpivae" with
+   of each (reset between), whole and with mc_chunk 4. The same sweep
+   with compute_dtype="bfloat16" and "auto": no launch, finite rows. Then
+   remat's memory at the JAX package's w1024_b1024_mc64 cell (simple_beam,
+   its physics a width-1,024 two-hidden-layer tanh surrogate, hidden_width
+   1,024, batch 1,024, 64 MC): one single-run train step's peak above its
+   start with and without remat, unchunked and in 8 MC chunks (remat must
+   peak lower in chunks), launches counted, and the allocations live at
+   the unchunked peaks, from the allocator's recorded history. damped_oscillator / "dpivae" with
    the Conv1d encoder trunk (encoder_x="CNN"), 200 steps with
    use_pallas=True (n_iter + n_iter / val_freq and n_iter launches)
    against use_pallas=False: finite rows, the first 10 agree. Then the
@@ -201,6 +213,7 @@ step's gradients forward.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -231,6 +244,11 @@ N_ITER_MESH = 500   # the mesh's data-parallel run, cut for the limit
 N_ITER_MESH_SWEEP = 200   # the mesh's sweep and study, cut for the limit
 N_ITER_SWEEP_OPTIONS = 200   # phase 15's sweeps with remat and bf16
 MC_CHUNK_MEMORY = 4   # phase 15's chunked step: 4 chunks of 16 samples
+# Phase 15's remat cell, the JAX package's w1024_b1024_mc64
+# (bench.py:123-178), and its chunked step: 8 chunks of 8 samples.
+REMAT_WIDTH = 1024
+REMAT_MC = 64
+MC_CHUNKS_REMAT = 8
 N_ITER_CNN = 200   # phase 15's CNN-encoder model, cut for the limit
 N_ITER_CUSTOM = 500   # the custom case example's 2,000, cut for the limit
 N_ITER_HYPER = 200   # the hyper search example's 2,000, cut for the limit
@@ -972,7 +990,8 @@ def _single_run(ops, failures, card):
 
     import numpy as np
 
-    from dpivae_tpu_torch.eval import disentanglement_metric, evaluate_model
+    from dpivae_tpu_torch.eval import baselines, disentanglement_metric
+    from dpivae_tpu_torch.eval import evaluate_model
     from dpivae_tpu_torch.scripts import single_run
     from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor, load_predictor
     from dpivae_tpu_torch.train.checkpoint import load_model
@@ -982,10 +1001,11 @@ def _single_run(ops, failures, card):
     with tempfile.TemporaryDirectory(dir=root) as out:
         ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
         t0 = time.perf_counter()
-        run = single_run.main([
-            "--case", "simple_beam", "--preset", "dpivae", "--name",
-            "chip_smoke", "--n_iter", str(N_ITER_SINGLE_RUN), "--output", out,
-            "--device", "cuda", "--export_serving"])
+        with _EpochRecorder(baselines) as mlp_epochs:
+            run = single_run.main([
+                "--case", "simple_beam", "--preset", "dpivae", "--name",
+                "chip_smoke", "--n_iter", str(N_ITER_SINGLE_RUN), "--output",
+                out, "--device", "cuda", "--export_serving"])
         wall = time.perf_counter() - t0
         launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
         cfg = run.config
@@ -1046,6 +1066,8 @@ def _single_run(ops, failures, card):
               f"{m['MSE'].tolist()} MAE {m['MAE'].tolist()}")
         if not all(np.isfinite(m[k]).all() for k in ("R2", "MSE", "MAE")):
             failures.append(f"single run: {name}'s metrics are not finite")
+    print(f"single run MLP baseline (scikit-learn's fit, {card}): "
+          f"{mlp_epochs.summary()}; {run.seconds['MLP']:.3f} s")
     if set(run.metrics) != {"LIN", "GPR", "MLP", cfg.name}:
         failures.append(f"single run: metrics of {sorted(run.metrics)}")
     r2_f64 = _lstsq_r2(run.data_train, run.data_test)
@@ -1072,17 +1094,24 @@ def _single_run(ops, failures, card):
     print(f"single run stage wall times ({card}): " + ", ".join(
         f"{name} {s:.3f} s" for name, s in stages.items()))
 
+    from dpivae_tpu_torch.eval import probes
+
     for regressor, kwargs in (("linear", None),
-                              ("mlp", dict(n_epochs=PROBE_EPOCHS))):
+                              ("mlp_jax", dict(n_epochs=PROBE_EPOCHS)),
+                              ("mlp", None)):
         t0 = time.perf_counter()
-        rows = disentanglement_metric(
-            cfg, run.model, run.params, run.case, run.data_train,
-            run.data_test, regressor=regressor,
-            generator=torch.Generator(device="cuda").manual_seed(SEED),
-            mlp_kwargs=kwargs)
+        with _EpochRecorder(probes) as epochs:
+            rows = disentanglement_metric(
+                cfg, run.model, run.params, run.case, run.data_train,
+                run.data_test, regressor=regressor,
+                generator=torch.Generator(device="cuda").manual_seed(SEED),
+                mlp_kwargs=kwargs)
         took = time.perf_counter() - t0
         what = regressor + (f" ({PROBE_EPOCHS} epochs)" if kwargs else "")
-        print(f"disentanglement_metric, {what} probes: {took:.3f} s; " +
+        if regressor == "mlp":
+            what += f" (scikit-learn's fit: {epochs.summary()})"
+        print(f"disentanglement_metric, {what} probes ({card}): "
+              f"{took:.3f} s; " +
               ", ".join(f"{b}/{f} {r:.4f}" for b, f, r in rows))
         if len(rows) != 3 * len(run.case.factors) or not all(
                 np.isfinite(r[2]) for r in rows):
@@ -1565,6 +1594,7 @@ def _study(ops, failures, card):
     import csv
     import tempfile
 
+    from dpivae_tpu_torch.eval import probes
     from dpivae_tpu_torch.scripts import disentanglement_metric as study
     from dpivae_tpu_torch.train import train as train_mod
 
@@ -1585,11 +1615,15 @@ def _study(ops, failures, card):
                     str(N_ITER_STUDY), "--regressor", "linear", "--output",
                     out, "--device", "cuda"]
             calls = []
-            for _ in range(2):
+            mlp = argv[:argv.index("--regressor") + 1] + ["mlp"] + argv[
+                argv.index("--regressor") + 2:]
+            # trained; resumed; resumed with scikit-learn's MLP probes
+            for args in (argv, argv, mlp):
                 steps[0] = 0
                 ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
                 t0 = time.perf_counter()
-                run = study.main(argv)
+                with _EpochRecorder(probes) as epochs:
+                    run = study.main(args)
                 wall = time.perf_counter() - t0
                 launched = (ops.fused_mlp.launches,
                             ops.fused_mlp_hidden.launches)
@@ -1597,11 +1631,11 @@ def _study(ops, failures, card):
                 with open(os.path.join(run.path,
                                        "disentanglement_score.csv")) as f:
                     rows = list(csv.reader(f))
-                calls.append((run, rows, steps[0], launched, wall))
+                calls.append((run, rows, steps[0], launched, wall, epochs))
             files = sorted(os.listdir(run.path))
     finally:
         train_mod.MemberTrainer.step = step
-    (first, rows, n_steps, launched, wall), second = calls[0], calls[1]
+    (first, rows, n_steps, launched, wall, _), second = calls[0], calls[1]
     n_members = first.result.n_members
     want_rows = n_members * len(first.case.factors) * 3
     scores = [float(r[2]) for r in rows[1:]]
@@ -1622,7 +1656,7 @@ def _study(ops, failures, card):
         by_block.setdefault((r[0], r[1]), []).append(float(r[2]))
     print("study mean R² by (block, factor): " + ", ".join(
         f"{b}/{f} {sum(v) / len(v):.3f}" for (b, f), v in by_block.items()))
-    run2, rows2, n_steps2, launched2, wall2 = second
+    run2, rows2, n_steps2, launched2, wall2, _ = second
     print(f"study resumed on the same output: {n_steps2} batched steps, "
           f"launches {launched2}, scores "
           f"{'identical' if rows2 == rows else 'DIFFERENT'}; {wall2:.2f} s; "
@@ -1630,7 +1664,54 @@ def _study(ops, failures, card):
                                  for k, v in run2.timings.items()))
     if n_steps2 or launched2 != (0, 0) or rows2 != rows:
         failures.append("study: the resumed call trained or changed scores")
+    run3, rows3, n_steps3, launched3, wall3, epochs = calls[2]
+    scores3 = [float(r[2]) for r in rows3[1:]]
+    print(f"study resumed with --regressor mlp (scikit-learn's "
+          f"MLPRegressor(128, 128) fit, {card}): {n_steps3} batched steps, "
+          f"launches {launched3}, {len(scores3)} score rows "
+          f"{'finite' if all(map(math.isfinite, scores3)) else 'NOT FINITE'}"
+          f"; probes: {epochs.summary()}; {wall3:.2f} s; stages " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in run3.timings.items()))
+    by_block = {}
+    for r in rows3[1:]:
+        by_block.setdefault((r[0], r[1]), []).append(float(r[2]))
+    print("study (mlp probes) mean R² by (block, factor): " + ", ".join(
+        f"{b}/{f} {sum(v) / len(v):.3f}" for (b, f), v in by_block.items()))
+    if (n_steps3 or launched3 != (0, 0) or len(scores3) != want_rows
+            or not all(map(math.isfinite, scores3)) or run3.failures
+            or len(epochs.n_iter) != want_rows):
+        failures.append("study: the --regressor mlp resume trained, "
+                        "launched, or wrote rows missing or not finite")
     return tuple(total)
+
+
+class _EpochRecorder:
+    """Records the epochs (``n_iter``) of every ``fit_mlp_sklearn`` call
+    made through ``module``'s name for it, while in a ``with`` block."""
+
+    def __init__(self, module):
+        self.module, self.n_iter = module, []
+
+    def __enter__(self):
+        self.fit = self.module.fit_mlp_sklearn
+
+        def recorded(*args, **kwargs):
+            out = self.fit(*args, **kwargs)
+            self.n_iter.extend(out.n_iter.tolist())
+            return out
+
+        self.module.fit_mlp_sklearn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fit_mlp_sklearn = self.fit
+
+    def summary(self) -> str:
+        n = self.n_iter
+        if not n:
+            return "no fit"
+        return (f"{len(n)} fits, epochs median {statistics.median(n):g}, "
+                f"range {min(n)}-{max(n)}")
 
 
 def _per_request_times(predictors, x, c):
@@ -1790,6 +1871,7 @@ def _transfer(ops, failures, card):
 
     import numpy as np
 
+    from dpivae_tpu_torch.eval import baselines
     from dpivae_tpu_torch.scripts import regression_comparison as transfer
     from dpivae_tpu_torch.serving import Predictor, load_predictor
     from dpivae_tpu_torch.sweep import (
@@ -1828,7 +1910,8 @@ def _transfer(ops, failures, card):
                 steps[0] = 0
                 ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
                 t0 = time.perf_counter()
-                run = transfer.main(argv + extra)
+                with _EpochRecorder(baselines) as epochs:
+                    run = transfer.main(argv + extra)
                 wall = time.perf_counter() - t0
                 launched = (ops.fused_mlp.launches,
                             ops.fused_mlp_hidden.launches)
@@ -1841,7 +1924,7 @@ def _transfer(ops, failures, card):
                 with open(os.path.join(run.path, "timings.json")) as f:
                     timings = json.load(f)
                 calls.append((run, rows, tex, timings, steps[0], launched,
-                              wall))
+                              wall, epochs))
             # One member of the "DPIVAE-A" grid as a serving artifact
             first = calls[0][0]
             member = 5
@@ -1854,7 +1937,7 @@ def _transfer(ops, failures, card):
             served = load_predictor(path, device="cuda")
     finally:
         train_mod.MemberTrainer.step = step
-    (run, rows, tex, timings, n_steps, launched, wall) = calls[0]
+    (run, rows, tex, timings, n_steps, launched, wall, _) = calls[0]
     case = run.case
     n_members = TRANSFER_RUNS * transfer.N_DOMAINS
     want_rows = n_members * 5
@@ -1890,7 +1973,7 @@ def _transfer(ops, failures, card):
               f"{k} {np.mean(v):.3f} ± {np.std(v, ddof=1):.3f} "
               f"({TRANSFER_R2_REFERENCE[k]})"
               for k, v in sorted(by_model.items())))
-    run2, rows2, _, timings2, n_steps2, launched2, wall2 = calls[1]
+    run2, rows2, _, timings2, n_steps2, launched2, wall2, _ = calls[1]
     same = rows2[1:] == [r for r in body if r[2].startswith("DPIVAE")]
     print(f"transfer resumed on the same output (--skip_baselines): "
           f"{n_steps2} batched steps, launches {launched2}, DPIVAE rows "
@@ -1899,7 +1982,7 @@ def _transfer(ops, failures, card):
     if n_steps2 or launched2 != (0, 0) or not same:
         failures.append("transfer: the resumed call trained, launched or "
                         "changed rows")
-    _, rows3, _, timings3, n_steps3, launched3, wall3 = calls[2]
+    _, rows3, _, timings3, n_steps3, launched3, wall3, epochs3 = calls[2]
     body3 = rows3[1:]
     key = lambda r: tuple(r[:3])
     by_key = {key(r): r for r in body}
@@ -1908,8 +1991,9 @@ def _transfer(ops, failures, card):
         r for r in body if r[2].startswith("DPIVAE")]
     lin_gap = max(abs(float(a) - float(b)) for r in body3 if r[2] == "LIN"
                   for a, b in zip(r[3:], by_key[key(r)][3:]))
-    gpr = {name: [float(r[3]) for r in rows_ if r[2] == "GPR"]
-           for name, rows_ in (("sklearn", body3), ("jax", body))}
+    gpr, mlp = ({name: [float(r[3]) for r in rows_ if r[2] == model]
+                 for name, rows_ in (("sklearn", body3), ("jax", body))}
+                for model in ("GPR", "MLP"))
     print(f"transfer resumed with the default --baselines sklearn: "
           f"{n_steps3} batched steps, launches {launched3}, {len(body3)} rows "
           f"{'finite' if finite3 else 'NOT FINITE'}, DPIVAE rows "
@@ -1920,6 +2004,17 @@ def _transfer(ops, failures, card):
               f"{k} {np.mean(v):.3f} ± {np.std(v, ddof=1):.3f}"
               for k, v in gpr.items())
           + f" (BASELINE.md {TRANSFER_R2_REFERENCE['GPR']})")
+    print(f"transfer MLP baseline ({card}): --baselines sklearn "
+          f"(MLPRegressor(64, 64)'s rules, all members at once) "
+          f"{epochs3.summary()}; mean R² " + ", ".join(
+              f"{k} {np.mean(v):.3f} ± {np.std(v, ddof=1):.3f}"
+              for k, v in mlp.items())
+          + f" (BASELINE.md {TRANSFER_R2_REFERENCE['MLP']}); baselines "
+          f"stage {timings3.get('baselines', float('nan')):.3f} s")
+    if len(epochs3.n_iter) != n_members:
+        failures.append(f"transfer: the sklearn MLP fitted "
+                        f"{len(epochs3.n_iter)} members, expected "
+                        f"{n_members}")
     if (n_steps3 or launched3 != (0, 0) or not same3 or not finite3
             or len(body3) != want_rows or not lin_gap <= 1e-4):
         failures.append("transfer: the default-baselines call trained, "
@@ -2249,17 +2344,154 @@ def _mesh(ops, failures, card):
 # three example programs
 # ----------------------------------------------------------------------
 
-def _step_peak_mb(run, gens, step):
-    """(peak, peak above the allocation before it) of one warm batched
-    train step, in MB: torch.cuda.max_memory_allocated, reset just
-    before."""
+def _step_peak_mb(step):
+    """(peak, peak above the allocation before it) of one warm train step,
+    the call ``step()``, in MB: torch.cuda.max_memory_allocated, reset
+    just before."""
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    run.step(step, generators=gens)
+    step()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     return peak / 1e6, (peak - before) / 1e6
+
+
+def _allocations_at_peak(step, top=6):
+    """The allocations live when one call of ``step()`` peaks, from the
+    caching allocator's recorded history (``torch.cuda.memory``): the
+    trace's alloc and free events replayed from the call's start. Returns
+    (peak MB above the start, [(MB, count, where), ...] largest first),
+    ``where`` the innermost frame in the port (or the innermost frame)."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    try:
+        step()
+        torch.cuda.synchronize()
+        snapshot = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, total, peak, at_peak = {}, 0, 0, {}
+    for event in snapshot["device_traces"][0]:
+        if event["action"] == "alloc":
+            live[event["addr"]] = event
+            total += event["size"]
+        elif event["action"] == "free_completed" and event["addr"] in live:
+            total -= live.pop(event["addr"])["size"]
+        if total > peak:
+            peak, at_peak = total, dict(live)
+
+    def where(event):
+        frames = event.get("frames") or []
+        ours = [f for f in frames if "dpivae_tpu_torch" in f["filename"]]
+        f = (ours or frames or [{"filename": "?", "line": 0, "name": "?"}])[0]
+        return (f"{f['filename'].split('dpivae_tpu_torch/')[-1]}:"
+                f"{f['line']} {f['name']}")
+
+    groups = {}
+    for event in at_peak.values():
+        key = where(event)
+        size, count = groups.get(key, (0, 0))
+        groups[key] = (size + event["size"], count + 1)
+    ranked = sorted(((size / 1e6, count, key)
+                     for key, (size, count) in groups.items()), reverse=True)
+    return peak / 1e6, ranked[:top]
+
+
+def _widened_case(width):
+    """simple_beam with its physics replaced by a width-``width`` tanh MLP
+    of two hidden layers and random weights x 0.1, as
+    benchmarks/experiments/scaling.py's ``widened_case`` builds the JAX
+    package's scaled cells; the data's full model is untouched."""
+    import numpy as np
+
+    from dpivae_tpu_torch.cases import Surrogate, get_case
+
+    base = get_case("simple_beam")
+    d_in = base.nz_x + len(base.idx_c_phys)
+    rng = np.random.default_rng(width)
+    sizes = [d_in, width, width, base.nd_x]
+    layers = tuple(
+        {"w": (0.1 * rng.uniform(-1, 1, (a, b)) * math.sqrt(6 / (a + b)))
+         .astype(np.float32), "b": np.zeros(b, np.float32)}
+        for a, b in zip(sizes[:-1], sizes[1:]))
+    surrogate = Surrogate(params={"layers": layers},
+                          scaler_mean=np.zeros(d_in, np.float32),
+                          scaler_scale=np.ones(d_in, np.float32))
+    return dataclasses.replace(base, part_model=surrogate)
+
+
+def _remat_memory(ops, failures, card):
+    """remat_decode's memory at the JAX package's w1024_b1024_mc64 cell
+    (docs/PERFORMANCE.md:208-209: 703 MB of peak HBM with remat against
+    970 MB without): one single-run train step of the widened simple_beam,
+    with and without remat, unchunked and in MC_CHUNKS_REMAT chunks.
+    Chunked, remat's peak above the step's start must be lower. Returns
+    the (forward, hidden) launches of the counted steps."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.train import init_params, setup_model
+    from dpivae_tpu_torch.train.train import Trainer
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    case = _widened_case(REMAT_WIDTH)
+    base = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, hidden_width=REMAT_WIDTH, n_batch=1024,
+        n_mc_train=REMAT_MC, n_train=1024)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data_train = sample_response(case, gen, base.n_train,
+                                 sample_dist=case.gt_dist(), device="cuda")
+    data_val = sample_response(case, gen, base.n_val,
+                               sample_dist=case.gt_dist(), device="cuda")
+    params = init_params(base, setup_model(base, case, data_train,
+                                           device="cuda"), device="cuda")
+    chunked = REMAT_MC // MC_CHUNKS_REMAT  # samples per chunk
+    total, peaks = [0, 0], {}
+    for chunk in (None, chunked):
+        for remat in (True, False):
+            cfg = base.replace(mc_chunk=chunk, remat_decode=remat)
+            run = Trainer(cfg, case, copy.deepcopy(params), data_train,
+                          data_val, cfg.lambda_g0)
+            g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+            run.step(0, generator=g)  # the warm-up: Adam's state exists
+            ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+            peak, above = _step_peak_mb(lambda: run.step(1, generator=g))
+            launched = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+            total = [a + b for a, b in zip(total, launched)]
+            n_chunks = 1 if chunk is None else MC_CHUNKS_REMAT
+            # "auto" is plain here: the decoder's hidden width is outside
+            # the kernel's band
+            want = (((2 if remat else 1) * n_chunks, n_chunks)
+                    if run.model.use_pallas else (0, 0))
+            peaks[chunk, remat] = above
+            print(f"remat cell w{REMAT_WIDTH}_b1024_mc{REMAT_MC}, "
+                  f"remat_decode={remat}, mc_chunk {chunk} ({card}): one "
+                  f"train step's torch.cuda.max_memory_allocated {peak:.1f} "
+                  f"MB, {above:.1f} MB above the step's start; use_pallas "
+                  f"'auto' resolved to {run.model.use_pallas}, launches "
+                  f"{launched} (expected {want})")
+            if launched != want:
+                failures.append(f"remat cell (mc_chunk {chunk}, remat "
+                                f"{remat}): launches {launched}, expected "
+                                f"{want}")
+            if chunk is None:
+                at_peak, ranked = _allocations_at_peak(
+                    lambda: run.step(2, generator=g))
+                print(f"  allocations live at that step's peak "
+                      f"({at_peak:.1f} MB above its start), by the "
+                      f"innermost frame of the port: " + "; ".join(
+                          f"{mb:.1f} MB x{n} {where}"
+                          for mb, n, where in ranked))
+            del run
+    print(f"remat cell ({card}): peak above the step's start, unchunked "
+          f"{peaks[None, True]:.1f} MB with remat vs {peaks[None, False]:.1f} "
+          f"MB without (JAX package, whole program: 703 vs 970 MB); "
+          f"{MC_CHUNKS_REMAT} chunks {peaks[chunked, True]:.1f} vs "
+          f"{peaks[chunked, False]:.1f} MB")
+    if not peaks[chunked, True] < peaks[chunked, False]:
+        failures.append(f"remat cell: in {MC_CHUNKS_REMAT} MC chunks remat's "
+                        f"peak {peaks[chunked, True]:.1f} MB is not below "
+                        f"{peaks[chunked, False]:.1f} MB")
+    return tuple(total)
 
 
 def _sweep_decode_options(ops, failures, card):
@@ -2328,7 +2560,7 @@ def _sweep_decode_options(ops, failures, card):
             run, gens = _member_run(cfg.replace(mc_chunk=mc_chunk), case,
                                     lambdas)
             run.step(0, generators=gens)
-            peaks[name] = _step_peak_mb(run, gens, 1)
+            peaks[name] = _step_peak_mb(lambda: run.step(1, generators=gens))
             del run, gens
         print(f"one batched step of {SWEEP_MEMBERS} members, mc_chunk "
               f"{mc_chunk} ({card}), torch.cuda.max_memory_allocated: "
@@ -2517,9 +2749,10 @@ def _examples(ops, failures, card, served, request):
 def _phase15(ops, failures, card, served, request):
     """Phase 15. Returns the (forward, hidden) launches of its paths."""
     sweeps = _sweep_decode_options(ops, failures, card)
+    remat = _remat_memory(ops, failures, card)
     cnn = _cnn_model(ops, failures, card)
     examples = _examples(ops, failures, card, served, request)
-    return tuple(a + b + c for a, b, c in zip(sweeps, cnn, examples))
+    return tuple(sum(c) for c in zip(sweeps, remat, cnn, examples))
 
 
 def main() -> int:

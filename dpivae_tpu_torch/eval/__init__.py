@@ -20,6 +20,8 @@ from dpivae_tpu_torch.eval.probes import (  # noqa: F401
     batched_probe_scores,
     fit_linear_probes_batched,
     fit_mlp_probes_batched,
+    fit_mlp_probes_sklearn,
     make_probe_regressor,
     pack_probe_batch,
 )
+from dpivae_tpu_torch.eval.sklearn_mlp import MLPFit, fit_mlp_sklearn  # noqa: F401

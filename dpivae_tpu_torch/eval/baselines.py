@@ -25,10 +25,12 @@ Each family fits every member at once, in f32 on one device:
   likelihood and its gradient (autograd) on the device. ``run_comparison``
   uses it; the batched fit misses scikit-learn's optimum on folds where
   the clamped float32 BFGS stops early.
-- ``fit_mlp_baseline_batched``: MLP(64, 64) with ReLU, Glorot-uniform init,
-  Adam (optax's update), minibatches of 200 drawn with replacement and
-  shared by the members, L2 alpha 1e-4, a fixed epoch count; targets are
-  standardized per member and mapped back.
+- ``fit_mlp_baseline_batched``: the JAX package's batched MLP(64, 64):
+  ReLU, Glorot-uniform init with zero biases, Adam (optax's update),
+  minibatches of 200 drawn with replacement and shared by the members, L2
+  alpha 1e-4, a fixed epoch count; targets are standardized per member
+  and mapped back. ``run_comparison`` fits scikit-learn's MLP instead
+  (``eval/sklearn_mlp.py``).
 
 The MLP draws its initial weights and minibatch rows from an explicit
 ``torch.Generator``; ``init`` and ``indices`` hand in ready-made ones (the
@@ -43,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dpivae_tpu_torch.eval.sklearn_mlp import fit_mlp_sklearn
 from dpivae_tpu_torch.utils import DeviceLike, resolve_device
 from dpivae_tpu_torch.utils.metrics import regression_metrics
 
@@ -525,25 +528,36 @@ def fit_mlp_baseline_batched(X_tr, Y_tr, X_te, hidden: Tuple[int, ...] = (64, 64
 def run_comparison_batched(
     data_train,
     data_test,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     models: Tuple[str, ...] = ("LIN", "GPR", "MLP"),
     mlp_kwargs: Optional[dict] = None,
     device: DeviceLike = None,
-    gpr: str = "batched",
+    baselines: str = "jax",
 ) -> Tuple[List[Dict[str, dict]], List[Dict[str, np.ndarray]]]:
     """Every member's comparison against the baselines, on ``device``
     (None means CUDA).
 
     ``data_*`` are member-stacked (x, c, y, ...) of shape (M, N, d); the
     features are [x ‖ c] standardized by each member's train moments.
+    ``baselines`` picks the GPR and MLP fits (LIN is least squares in
+    both):
+
+    - "jax", the JAX package's batched design: ``fit_gpr_batched`` (every
+      member at once, float32) and ``fit_mlp_baseline_batched`` (a fixed
+      epoch count; ``mlp_kwargs`` go to it), ``generator`` one
+      ``torch.Generator`` for the MLP;
+    - "sklearn", the JAX package's scikit-learn ``run_comparison``:
+      ``fit_gpr_lbfgsb`` (float64, L-BFGS-B, member by member) and
+      ``fit_mlp_sklearn`` (MLPRegressor(64, 64), max_iter 10,000, every
+      member at once), ``generator`` one ``torch.Generator`` per member
+      (or one, for one member).
+
     Returns per-member ``(metrics, predictions)`` dict lists in member
-    order; ``generator`` feeds the MLP. ``gpr`` picks the GPR fit:
-    "batched" (``fit_gpr_batched``, every member at once in float32) or
-    "lbfgsb" (``fit_gpr_lbfgsb``, scikit-learn's fit, member by member).
+    order.
     """
-    gpr_fits = {"batched": fit_gpr_batched, "lbfgsb": fit_gpr_lbfgsb}
-    if gpr not in gpr_fits:
-        raise ValueError(f"Unknown GPR fit {gpr!r}; have {sorted(gpr_fits)}")
+    if baselines not in ("jax", "sklearn"):
+        raise ValueError(f"Unknown baselines {baselines!r}; have 'jax' and "
+                         f"'sklearn'")
     device = resolve_device(device)
     x_tr, c_tr, y_tr = (_as_f32(a, device) for a in data_train[:3])
     x_te, c_te, y_te = (_as_f32(a, device) for a in data_test[:3])
@@ -555,11 +569,17 @@ def run_comparison_batched(
         if name == "LIN":
             pred = fit_lin_batched(X_tr, y_tr, X_te)
         elif name == "GPR":
-            pred, _ = gpr_fits[gpr](X_tr, y_tr, X_te)
-        elif name == "MLP":
+            fit = fit_gpr_batched if baselines == "jax" else fit_gpr_lbfgsb
+            pred, _ = fit(X_tr, y_tr, X_te)
+        elif name == "MLP" and baselines == "jax":
             pred = fit_mlp_baseline_batched(X_tr, y_tr, X_te,
                                             generator=generator,
                                             **(mlp_kwargs or {}))
+        elif name == "MLP":
+            gens = ([generator] if isinstance(generator, torch.Generator)
+                    else generator)
+            pred = fit_mlp_sklearn(X_tr, y_tr, X_te, (64, 64), 10_000,
+                                   generators=gens).pred
         else:
             raise ValueError(f"Unknown baseline {name!r}; have LIN, GPR, MLP")
         preds[name] = pred.cpu().numpy()

@@ -5,7 +5,9 @@ The VAE's predictions and latents are MC means computed on the device by
 The JAX package fits its comparison baselines and disentanglement probes
 with scikit-learn on the host; here both run on the batched torch fits of
 ``eval/baselines.py`` and ``eval/probes.py`` with one member, on the device
-of the params (the card has no scikit-learn).
+of the params (the card has no scikit-learn): its GPR as scikit-learn fits
+it (``fit_gpr_lbfgsb``) and its MLPs by scikit-learn's ``MLPRegressor``
+rules (``eval/sklearn_mlp.py``).
 
 Randomness comes from an explicit ``torch.Generator`` (default: seeded 0
 on the params' device), or from ``noise``, the ready-made standard normals
@@ -104,9 +106,11 @@ def run_comparison(
 ) -> Tuple[Dict[str, dict], Dict[str, np.ndarray]]:
     """The baselines LIN, GPR(RBF + White) and MLP(64, 64) on [x ‖ c]
     standardized by the train moments -> y, on ``device`` (None means
-    CUDA): ``run_comparison_batched`` with one member, its GPR fitted as
-    scikit-learn fits it (float64, L-BFGS-B: ``fit_gpr_lbfgsb``), as the
-    JAX package's scikit-learn ``run_comparison`` does. Returns (metrics,
+    CUDA): ``run_comparison_batched(baselines="sklearn")`` with one
+    member, as the JAX package's scikit-learn ``run_comparison`` fits them:
+    the GPR in float64 by L-BFGS-B (``fit_gpr_lbfgsb``), the MLP as
+    ``MLPRegressor(hidden_layer_sizes=(64, 64), max_iter=10000)``
+    (``fit_mlp_sklearn``, its draws from ``generator``). Returns (metrics,
     predictions) keyed by baseline."""
     del case  # the features and targets come from the data alone
     if np.shape(data_train[0])[0] != config.n_train:
@@ -119,7 +123,7 @@ def run_comparison(
         [None] for a in data[:3])
     metrics, preds = run_comparison_batched(
         one(data_train), one(data_test), generator=generator,
-        models=tuple(models), device=device, gpr="lbfgsb")
+        models=tuple(models), device=device, baselines="sklearn")
     return metrics[0], preds[0]
 
 
@@ -194,7 +198,8 @@ def disentanglement_metric(
     samples averaged with ``use_mean``), drawn from ``generator`` (the
     train split's, then the test split's), or taken from ``noise``, a pair
     of ``sample`` noise mappings for the two splits. The probes run on the
-    params' device; ``mlp_kwargs`` go to the MLP probe (e.g. ``n_epochs``).
+    params' device; ``mlp_kwargs`` go to the MLP probe (``max_iter`` for
+    "mlp", ``n_epochs`` for "mlp_jax").
     """
     device = params.log_sigma_x.device
     if generator is None and noise is None:

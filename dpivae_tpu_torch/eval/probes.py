@@ -7,12 +7,19 @@ inputs are zero-padded to a common width and stacked on a probe axis.
 - ``fit_linear_probes_batched``: least squares with an intercept through
   a pseudo-inverse (zero-padded columns get zero weight), as
   scikit-learn's ``LinearRegression``.
-- ``fit_mlp_probes_batched``: MLP(128, 128) trained with Adam, Glorot init,
-  minibatches of 200 and L2 alpha 1e-4 (scikit-learn's ``MLPRegressor``
-  defaults, a fixed epoch count in place of its tolerance stop), on
-  per-probe standardized targets; the trainer is the MLP baseline's
-  (``eval/baselines.py``), with the same ``generator`` / ``init`` /
-  ``indices`` seam.
+- ``fit_mlp_probes_sklearn``: ``MLPRegressor(hidden_layer_sizes=(128,
+  128), max_iter=20000)`` per probe, as the JAX package's ``mlp`` probe
+  (``eval/sklearn_mlp.py``: its init, shuffled epochs and tolerance stop,
+  raw targets), every probe at once.
+- ``fit_mlp_probes_batched``: the JAX package's batched ``mlp_jax`` probe,
+  MLP(128, 128) trained with Adam, Glorot init, minibatches of 200 and L2
+  alpha 1e-4 for a fixed epoch count, on per-probe standardized targets;
+  the trainer is the batched MLP baseline's (``eval/baselines.py``), with
+  the same ``generator`` / ``init`` / ``indices`` seam.
+
+``make_probe_regressor`` names them as the JAX program does: "linear" and
+"linear_jax" are the same exact least squares, "mlp" is scikit-learn's
+fit and "mlp_jax" the batched one.
 
 Scores are test-set R², as scikit-learn's ``score``. The JAX package's
 ``warm_batched_probes`` compiles its programs ahead of use; eager PyTorch
@@ -33,6 +40,8 @@ from dpivae_tpu_torch.eval.baselines import (
     mlp_draws,
     train_mlp_batched,
 )
+from dpivae_tpu_torch.eval.sklearn_mlp import fit_mlp_sklearn
+from dpivae_tpu_torch.train.train import member_generators
 from dpivae_tpu_torch.utils import DeviceLike, resolve_device
 
 BLOCKS = ("zx", "zc", "zy")
@@ -128,19 +137,51 @@ def pack_probe_batch(latents_train, latents_test, z_train, z_test, n_factors,
     return x_tr, y_tr, x_te, y_te
 
 
+def fit_mlp_probes_sklearn(X_train, y_train, X_test, y_test, *,
+                           generator: Optional[torch.Generator] = None,
+                           fan_in=None, max_iter: int = 20_000, init=None,
+                           orders=None):
+    """``MLPRegressor(hidden_layer_sizes=(128, 128), max_iter=max_iter)``
+    per probe, every probe at once; its test R² (P,), as ``score`` gives
+    it.
+
+    Shapes: X_* (P, N, D) zero-padded to D, y_* (P, N); ``fan_in`` (P,)
+    each probe's true input width. Probe p draws from its own generator,
+    ``member_generators(seed, [p])`` with ``seed`` one draw from
+    ``generator`` (default: seeded 0 on the data's device); ``init`` and
+    ``orders`` replace the draws (``fit_mlp_sklearn``).
+    """
+    device = X_train.device
+    gens = None
+    if init is None or orders is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        seed = int(torch.randint(2 ** 62, (), generator=generator,
+                                 device=generator.device))
+        gens = member_generators(seed, range(X_train.shape[0]), device)
+    fit = fit_mlp_sklearn(X_train, y_train[..., None], X_test, (128, 128),
+                          max_iter, generators=gens, fan_in=fan_in,
+                          init=init, orders=orders)
+    return _r2(y_test, fit.pred[..., 0])
+
+
 def make_probe_regressor(regressor: str):
-    """The probe fit for ``regressor``: "linear" (least squares, as
-    scikit-learn's ``LinearRegression``) or "mlp" (MLP(128, 128), as its
-    ``MLPRegressor``), each ``(X_train, y_train, X_test, y_test, *,
-    generator=None, fan_in=None, **mlp_kwargs) -> test R² (P,)``."""
-    if regressor == "linear":
+    """The probe fit for ``regressor``, by the JAX program's names:
+    "linear" and "linear_jax" (least squares, as scikit-learn's
+    ``LinearRegression``), "mlp" (``fit_mlp_probes_sklearn``, as its
+    ``MLPRegressor(128, 128)``) and "mlp_jax" (``fit_mlp_probes_batched``,
+    a fixed epoch count), each ``(X_train, y_train, X_test, y_test, *,
+    generator=None, fan_in=None, **kwargs) -> test R² (P,)``."""
+    if regressor in ("linear", "linear_jax"):
         def fit_linear(X_tr, y_tr, X_te, y_te, *, generator=None, fan_in=None):
             return fit_linear_probes_batched(X_tr, y_tr, X_te, y_te)
         return fit_linear
     if regressor == "mlp":
+        return fit_mlp_probes_sklearn
+    if regressor == "mlp_jax":
         return fit_mlp_probes_batched
-    raise ValueError(f"Unknown regressor {regressor!r}; have 'linear' and "
-                     f"'mlp'")
+    raise ValueError(f"Unknown regressor {regressor!r}; have 'linear', "
+                     f"'mlp', 'linear_jax' and 'mlp_jax'")
 
 
 def batched_probe_scores(
@@ -149,13 +190,13 @@ def batched_probe_scores(
     z_train,
     z_test,
     n_factors: int,
-    regressor: str = "mlp",
+    regressor: str = "mlp_jax",
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
     **mlp_kwargs,
 ) -> np.ndarray:
     """All probes' test R² as (M, n_factors, 3), blocks in the order (zx,
-    zc, zy); ``regressor`` "linear" or "mlp"."""
+    zc, zy); ``regressor`` a name of ``make_probe_regressor``."""
     fit = make_probe_regressor(regressor)
     X_tr, y_tr, X_te, y_te = pack_probe_batch(
         latents_train, latents_test, z_train, z_test, n_factors, device)

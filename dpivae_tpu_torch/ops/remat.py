@@ -6,7 +6,8 @@ decode).
 tuple of tensors) computed without keeping any activation: the forward
 runs ``fn`` under ``torch.no_grad()`` and saves only its inputs, and the
 backward runs ``fn`` again under ``torch.func.vjp`` and pulls the output
-cotangents back to ``inputs``. ``consts`` take no gradient (a GRL
+cotangents back to ``inputs`` once, freeing each recomputed activation as
+the pullback passes it. ``consts`` take no gradient (a GRL
 strength, which a sweep passes per member as a tensor).
 
 ``torch.utils.checkpoint`` does the same for plain autograd through
@@ -49,7 +50,11 @@ class _Recompute(torch.autograd.Function):
         consts = tensors[n:]
         _, pullback = torch.func.vjp(lambda *a: tuple(ctx.fn(*a, *consts)),
                                      *tensors[:n])
-        return (None, None, *pullback(grads), *(None for _ in consts))
+        # One pullback: without retain_graph each recomputed activation is
+        # freed as the backward passes it, as plain autograd frees its own,
+        # instead of all of them living until the pullback returns.
+        return (None, None, *pullback(grads, retain_graph=False),
+                *(None for _ in consts))
 
 
 def recompute(fn: Callable[..., Sequence[torch.Tensor]],

@@ -12,8 +12,13 @@ CSVs are written from its chunk's callback, ``chunks/`` keeps every
 completed chunk so that a rerun into the same output resumes it, the
 members' latents come from ``sweep_disentanglement_latents`` and the
 probes from ``eval.probes.batched_probe_scores``, every probe of every
-member at once on the device (``--regressor linear``: least squares;
-``mlp``: MLP(128, 128)). Writes ``<output>/<name>/``: ``args.json``,
+member at once on the device. ``--regressor`` takes the JAX script's four
+names: ``linear`` and ``linear_jax`` are the same least squares (the
+JAX script fits the first with scikit-learn, the second batched); ``mlp``
+is scikit-learn's ``MLPRegressor(128, 128)`` fit with its tolerance stop
+(``eval.probes.fit_mlp_probes_sklearn``); ``mlp_jax`` is the JAX
+package's batched MLP(128, 128) probe, trained for ``--probe_epochs``
+epochs. Writes ``<output>/<name>/``: ``args.json``,
 ``<member>/metrics/*.csv``, ``chunks/``, ``disentanglement_score.csv``
 (columns set, gen_factor, score, idx_var, iter, lambda, with λ x 10^4 as
 the JAX script writes it), ``timings.json`` (seconds per stage) and, with
@@ -85,11 +90,15 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_runs", type=int, default=6)
     parser.add_argument("--n_iter", type=int, default=None)
     parser.add_argument("--regressor", default="linear",
-                        choices=["linear", "mlp"],
-                        help="probe: least squares or MLP(128, 128), all "
-                             "probes of all members batched on the device")
+                        choices=["linear", "mlp", "linear_jax", "mlp_jax"],
+                        help="probe, all probes of all members batched on "
+                             "the device: linear/linear_jax = least "
+                             "squares; mlp = scikit-learn's "
+                             "MLPRegressor(128, 128) fit (its tolerance "
+                             "stop); mlp_jax = the JAX package's batched "
+                             "MLP(128, 128), --probe_epochs epochs")
     parser.add_argument("--probe_epochs", type=int, default=300,
-                        help="training epochs of the mlp probe")
+                        help="training epochs of the batched mlp_jax probe")
     parser.add_argument("--probe_workers", type=int, default=1,
                         help="accepted for the JAX script's command lines; "
                              "no effect (the probes run batched)")
@@ -280,7 +289,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Study]:
         t0 = mark("latents", t0)
 
         mlp_kwargs = ({"n_epochs": args.probe_epochs}
-                      if args.regressor == "mlp" else {})
+                      if args.regressor == "mlp_jax" else {})
         scores = batched_probe_scores(
             {b: latents[f"{b}_train"] for b in BLOCKS},
             {b: latents[f"{b}_test"] for b in BLOCKS},

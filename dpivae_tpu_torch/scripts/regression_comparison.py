@@ -19,15 +19,18 @@ gives every member's posterior-mean y over n_mc_test samples. The
 LIN/GPR/MLP baselines follow, and the metrics aggregate into the JAX
 script's mean ± std tables.
 
-Both --baselines choices are the port's own torch fits, named after the
-JAX script's: "sklearn" (the default) fits member by member through
-``eval.run_comparison``, its GPR in float64 by L-BFGS-B as
-scikit-learn's ``GaussianProcessRegressor`` fits it; "jax" fits every
-member of each family at once through ``eval.run_comparison_batched``,
-the JAX package's batched design, whose float32 GPR with a clamped BFGS
-stops short of scikit-learn's optimum on many extrapolation folds. LIN
-agrees between the two; the MLP is the port's batched MLP (a fixed 300
-epochs) in both, not scikit-learn's early-stopped MLPRegressor.
+Both --baselines choices are the port's own torch fits through
+``eval.run_comparison_batched``, named after the JAX script's. "sklearn"
+(the default) fits as the JAX package's scikit-learn ``run_comparison``
+does: the GPR in float64 by L-BFGS-B, as ``GaussianProcessRegressor``
+fits it, member by member; the MLP by ``MLPRegressor(64, 64,
+max_iter=10000)``'s rules (its init, shuffled epochs, raw targets and
+tolerance stop: ``eval.fit_mlp_sklearn``), every member at once, each
+from its own generator. "jax" is the JAX package's batched design, every
+member of each family at once: a float32 GPR with a clamped BFGS, which
+stops short of scikit-learn's optimum on many extrapolation folds, and
+an MLP trained for a fixed 300 epochs on standardized targets. LIN is
+the same least squares in both.
 
 Writes ``<output>/<name>/``: ``settings/args.json`` (the base config),
 ``metrics/raw_metrics.csv`` (columns Run, Domain, Model, R2, MSE, MAE, in
@@ -111,11 +114,12 @@ def _parser() -> argparse.ArgumentParser:
         "--baselines", default="sklearn", choices=["sklearn", "jax"],
         help="how the LIN/GPR/MLP baselines are fitted; both are the port's "
              "own torch fits (eval/baselines.py), named after the JAX "
-             "script's choices: 'sklearn' fits member by member, as the "
-             "reference's serial loop does, its GPR in float64 by L-BFGS-B "
-             "as scikit-learn fits it; 'jax' fits all members of each "
-             "family at once, its GPR in float32 by a clamped BFGS (the "
-             "JAX package's batched design)")
+             "script's choices: 'sklearn' as scikit-learn fits them, the "
+             "GPR in float64 by L-BFGS-B member by member and the MLP by "
+             "MLPRegressor(64, 64)'s rules, all members at once; 'jax' "
+             "fits all members of each family at once in the JAX "
+             "package's batched design (a float32 GPR by a clamped BFGS, "
+             "an MLP of a fixed 300 epochs)")
     parser.add_argument("--seed", type=int, default=123)
     parser.add_argument("--output", default="output")
     parser.add_argument("--n_devices", type=int, default=None,
@@ -265,7 +269,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Transfer]:
 
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.config import TrainConfig
-    from dpivae_tpu_torch.eval import run_comparison, run_comparison_batched
+    from dpivae_tpu_torch.eval import run_comparison_batched
     from dpivae_tpu_torch.parallel import make_mesh
     from dpivae_tpu_torch.sweep import sweep_predict_y, train_sweep_data
     from dpivae_tpu_torch.train.train import member_generators
@@ -380,24 +384,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Transfer]:
         return None
     if not args.skip_baselines:
         seed = _stream_seed(args.seed, _BASELINE_TAG)
-        if args.baselines == "jax":
-            by_member, _ = run_comparison_batched(
-                data_train, data_test,
-                generator=torch.Generator(device=device).manual_seed(seed),
-                device=device)
-            for m, by_model in enumerate(by_member):
-                record(m, by_model)
-        else:
-            for m, g in enumerate(member_generators(seed, range(n_members),
-                                                    device)):
-                j, i = divmod(m, N_DOMAINS)
-                print(f"Baselines: run {j + 1}/{args.n_runs} domain "
-                      f"{i + 1}/{N_DOMAINS}")
-                by_model, _ = run_comparison(
-                    base_cfg, case, tuple(a[m] for a in data_train),
-                    tuple(a[m] for a in data_test), generator=g,
-                    device=device)
-                record(m, by_model)
+        generator = (
+            torch.Generator(device=device).manual_seed(seed)
+            if args.baselines == "jax"
+            else member_generators(seed, range(n_members), device))
+        print(f"Baselines ({args.baselines}): LIN, GPR, MLP for "
+              f"{n_members} members ...")
+        by_member, _ = run_comparison_batched(
+            data_train, data_test, generator=generator, device=device,
+            baselines=args.baselines)
+        for m, by_model in enumerate(by_member):
+            record(m, by_model)
         t0 = mark("baselines", t0)
 
     rows = metric_rows(metrics, args.n_runs)

@@ -14,6 +14,7 @@ orders); chunkings of the same members to 1e-6 after a few steps.
 """
 
 import csv
+import functools
 import json
 import os
 
@@ -373,3 +374,37 @@ def test_study_script_on_cpu(tmp_path, monkeypatch):
     assert second.rows == first.rows
     with pytest.raises(SystemExit):
         study.main(argv + ["--n_devices", "2"])
+
+
+@pytest.fixture(scope="module")
+def study_linear(tmp_path_factory):
+    """One study of 2 λ x 1 run, 20 iterations, with linear probes: its
+    argv (without --regressor) and its score rows."""
+    argv = ["--lambdas", "0.0001", "-0.0001", "--n_runs", "1", "--n_iter",
+            "20", "--device", "cpu", "--n_train_regressor", "200",
+            "--n_test_regressor", "200", "--output",
+            str(tmp_path_factory.mktemp("study"))]
+    return argv, study.main(argv + ["--regressor", "linear"]).rows
+
+
+@pytest.mark.parametrize("regressor", ["linear_jax", "mlp_jax", "mlp"])
+def test_study_script_regressor_names(regressor, study_linear, monkeypatch):
+    """The JAX script's other --regressor names, each resuming the linear
+    study's chunks (no training step): linear_jax writes the linear
+    scores; mlp_jax (--probe_epochs 5) and mlp (scikit-learn's fit, its
+    max_iter cut to 30 here) write finite scores of every probe."""
+    from dpivae_tpu_torch.eval import probes
+
+    monkeypatch.setattr(probes, "fit_mlp_probes_sklearn", functools.partial(
+        probes.fit_mlp_probes_sklearn, max_iter=30))
+    argv, linear_rows = study_linear
+    steps = _count_steps(monkeypatch)
+    run = study.main(argv + ["--regressor", regressor, "--probe_epochs", "5"])
+    assert steps[0] == 0
+    assert [r[:2] + r[3:] for r in run.rows] == [
+        r[:2] + r[3:] for r in linear_rows]
+    if regressor == "linear_jax":
+        assert run.rows == linear_rows
+    else:
+        assert all(np.isfinite(r[2]) for r in run.rows)
+        assert run.rows != linear_rows
