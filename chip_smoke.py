@@ -32,7 +32,8 @@ Phases; any failure exits non-zero before the result line:
    switch between them. Then the forward and plain f32 each against
    float64 at H = 256 to 1,024 (printed, not checked). Last, the CNN
    encoder (damped_oscillator's S-model widths) on the card with cuDNN's
-   TF32 flag at its default, on, against the same module on the CPU.
+   TF32 flag at its default, on, against the same module in float64 on
+   the CPU (the module in f32 on the CPU printed beside it, not checked).
 4. Serving path: simple_beam / "dpivae" preset with use_pallas=True at
    full width, random weights from a seed; a Predictor answers requests
    of n_test = 512 points with n_mc_test = 512 MC samples. The forward
@@ -197,7 +198,27 @@ Phases; any failure exits non-zero before the result line:
    127.0.0.1 from a thread: 20 POSTs of phase 4's 512-point request, each
    equal to ``ServedPredictor`` called directly with the same seed, the
    median wall of both, and 4 concurrent clients equal to serial calls.
-16. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+16. The graphed training loop (``train/graph.py``; every training above
+   already ran through it, "auto" on CUDA) against the eager loop
+   (``cuda_graph=False``) from the same seeds and weights, each pair's
+   rows, validations and params compared (max_abs_err expected 0):
+   simple_beam / "dpivae" at bench.py's workload with use_pallas=True,
+   500 steps, with a sigmoid λ and a cyclical β_x schedule (both change
+   inside the window), the launches counted (550 / 500), steps/s of both
+   loops as the median of 3 warm runs each in turns, and one replayed
+   step's wall, device busy share and kernel count under torch.profiler
+   beside one eager step's; an early stop under the graph (patience 1, a
+   one-sample validation and 10x learning rates, 200 steps: it latches
+   after the first block, so inside the replays), its stop iteration equal
+   to eager's; phase 10's 66-member damped_oscillator sweep, 300 steps,
+   "auto" (plain) and use_pallas=True, member-steps/s of both loops in
+   turns, a replayed 66-member step profiled, and the use_pallas=True sweep
+   with per-member early stops (patience 1, min_delta 0, a one-sample
+   validation and 10x learning rates: members stop at their own blocks,
+   frozen between replays); phase 12's 24-member bridge / "DPIVAE-A" grid
+   (P model, use_pallas=True, 100 steps); and the 66 members with
+   remat_decode (200 steps).
+17. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -253,6 +274,21 @@ N_ITER_CNN = 200   # phase 15's CNN-encoder model, cut for the limit
 N_ITER_CUSTOM = 500   # the custom case example's 2,000, cut for the limit
 N_ITER_HYPER = 200   # the hyper search example's 2,000, cut for the limit
 N_HTTP_REQUESTS = 20
+# Phase 16, the graphed loop against the eager loop: simple_beam's run
+# (phase 6's length), the early-stop run, and the warm runs of each loop
+# timed in turns. Annealed schedules (the config's sigmoid and cyclical
+# defaults: λ's midpoint at step 75 of 500, β_x's cycles of 100 steps)
+# so that a schedule row baked into a graph would show.
+N_ITER_GRAPH = 500
+N_ITER_GRAPH_STOP = 200
+GRAPH_TIMED_RUNS = 3
+GRAPH_ANNEALING = dict(lambda_annealing="sigmoid",
+                       beta_x_annealing="cyclical")
+# Early stops that latch under the graph: patience 1 with no dead zone, a
+# one-sample validation (noisy) and 10x learning rates.
+GRAPH_EARLY_STOP = dict(patience=1, min_delta=0.0, n_mc_val=1,
+                        **{f"lr_{k}": 0.01 for k in ("e", "p", "dx", "dc",
+                                                     "dy")})
 # BASELINE.md's JAX transfer study (extrapolation, 20,000 steps, reference
 # scale), mean ± std of the test R² over its 24 folds: a quality
 # reference printed beside this run's, not a threshold.
@@ -854,7 +890,11 @@ def _training(ops, failures, case_name, preset, n_iter):
 def _cnn_encoder_on_card(failures):
     """The Conv1d encoder at damped_oscillator's S-model widths (9 latents
     over nd_x 64), on the card with cuDNN's TF32 flag at its default (on),
-    against the same module on the CPU; beside it, how far a cuDNN
+    against the same module in float64 on the CPU. The f32 module on the
+    CPU is printed beside it, not checked: on the card's host its first
+    forward in a process has been seen to miss float64 by more than the
+    tolerance while the card matched float64, a fault of the host's f32
+    path and not of the encoder under test. Beside them, how far a cuDNN
     convolution of each conv layer's input under that flag lands from the
     encoder's own (printed, not checked)."""
     import copy
@@ -866,13 +906,15 @@ def _cnn_encoder_on_card(failures):
     cpu = CNNEncoder(9, 64, torch.Generator().manual_seed(SEED),
                      torch.device("cpu"))
     card = copy.deepcopy(cpu).to("cuda")
+    exact = copy.deepcopy(cpu).double()
     x = torch.randn(512, 64, generator=torch.Generator().manual_seed(SEED))
     before = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
         with torch.inference_mode():
             got = [t.cpu() for t in card(x.cuda())]
-            want = cpu(x)
+            want = exact(x.double())
+            host = cpu(x)
             h, cudnn_err = x.cuda()[:, :, None], []
             for conv in card.trunk.conv:
                 mine = conv(h)
@@ -882,16 +924,23 @@ def _cnn_encoder_on_card(failures):
                 h = torch.relu(mine)
     finally:
         torch.backends.cudnn.allow_tf32 = before
-    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    ok = all(torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+    worst = max(float((g.double() - w).abs().max())
+                for g, w in zip(got, want))
+    host_err = max(float((g.double() - w).abs().max())
+                   for g, w in zip(host, want))
+    ok = all(torch.allclose(g.double(), w, rtol=RTOL, atol=ATOL)
              for g, w in zip(got, want))
     print(f"CNN encoder 512 x 64 -> 9 latents, cuDNN allow_tf32 on: (loc, "
-          f"tril) on the card vs the CPU max_abs_err {worst:.3e} (rtol "
-          f"{RTOL} atol {ATOL}) {'ok' if ok else 'MISMATCH'}; conv layers "
-          f"1 and 2 on the card, cuDNN F.conv1d vs the encoder's own "
-          f"max_abs_err {cudnn_err[0]:.3e}, {cudnn_err[1]:.3e}")
+          f"tril) on the card vs float64 on the CPU max_abs_err {worst:.3e} "
+          f"(rtol {RTOL} atol {ATOL}) {'ok' if ok else 'MISMATCH'}; f32 on "
+          f"the CPU vs float64 {host_err:.3e}, card vs f32 on the CPU "
+          f"{max(float((g - w).abs().max()) for g, w in zip(got, host)):.3e} "
+          f"(printed, not checked); conv layers 1 and 2 on the card, cuDNN "
+          f"F.conv1d vs the encoder's own max_abs_err {cudnn_err[0]:.3e}, "
+          f"{cudnn_err[1]:.3e}")
     if not ok:
-        failures.append("the CNN encoder on the card disagrees with the CPU")
+        failures.append("the CNN encoder on the card disagrees with float64 "
+                        "on the CPU")
 
 
 def _profile_train_step(setup):
@@ -1643,7 +1692,8 @@ def _study(ops, failures, card):
           f"members (11 λ x 6 runs), {N_ITER_STUDY} steps, linear probes: "
           f"{len(rows) - 1} score rows (expected {want_rows}: "
           f"{len(first.case.factors)} factors x 3 blocks per member), "
-          f"{n_steps} batched steps, launches {launched}; {wall:.2f} s; "
+          f"{n_steps} eager batched steps (the rest replayed), launches "
+          f"{launched}; {wall:.2f} s; "
           f"stages " + ", ".join(f"{k} {v:.3f} s"
                                  for k, v in first.timings.items()))
     print(f"study files: {files[:6]} ... ({len(files)} entries)")
@@ -1865,7 +1915,8 @@ def _artifact(ops, failures, card, setup, request):
 def _transfer(ops, failures, card):
     """The transfer study in process, its resume, a member's artifact, then
     the use_pallas=True grid on the same datasets (phase 12). Returns the
-    (forward, hidden) launches of the counted runs."""
+    (forward, hidden) launches of the counted runs, the grid's
+    member-steps/s and its inputs (config, case, λs, datasets)."""
     import csv
     import tempfile
 
@@ -1948,7 +1999,8 @@ def _transfer(ops, failures, card):
           f"per preset ({TRANSFER_RUNS} runs x 4 domains), {N_ITER_TRANSFER} "
           f"steps, --baselines jax: {len(body)} rows (expected {want_rows}), "
           f"{'finite' if finite else 'NOT FINITE'}, models {sorted(models)}; "
-          f"{n_steps} batched steps; launches {launched} (expected (0, 0): "
+          f"{n_steps} eager batched steps (the rest replayed); launches "
+          f"{launched} (expected (0, 0): "
           f"'auto' is plain in sweeps); {wall:.2f} s; stages " + ", ".join(
               f"{k} {v:.3f} s" for k, v in timings.items()))
     if (tuple(rows[0]) != transfer.CSV_COLUMNS or len(body) != want_rows
@@ -2099,7 +2151,8 @@ def _transfer(ops, failures, card):
     _profile_sweep_step(base.replace(use_pallas=True), case, lambdas,
                         data=(dtr, dva))
     return tuple(a + b for a, b in zip(total, counts["kernel"])), {
-        k: n_members * n / t for k, t in times.items()}
+        k: n_members * n / t for k, t in times.items()}, (
+        base, case, lambdas, dtr, dva)
 
 
 def _max_diff(got, want) -> float:
@@ -2755,6 +2808,278 @@ def _phase15(ops, failures, card, served, request):
     return tuple(sum(c) for c in zip(sweeps, remat, cnn, examples))
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the graphed training loop against the eager loop
+# ----------------------------------------------------------------------
+
+def _graph_pair(what, run, failures, n_timed=0):
+    """``run(cuda_graph)`` -> (result, params, logs, launches, seconds),
+    once graphed and once eager, then ``n_timed`` warm runs of each in
+    turns (eager, graphed, graphed, eager, ...). Prints and checks the
+    pair's max_abs_err over rows, validations and params (expected 0) and
+    returns (graphed result, its launches, the seconds of the timed runs
+    by loop)."""
+    got, want = run(True), run(False)
+    worst = max(_max_diff(got[2], want[2]), _max_diff(got[1], want[1]))
+    print(f"graph vs eager, {what}: rows, validations and params "
+          f"max_abs_err {worst:.3e} (expected 0); stop iteration "
+          f"{got[2].stop_iter if got[2].train.dim() == 2 else 'per member'}"
+          f"; launches {got[3]} graphed, {want[3]} eager")
+    if worst != 0 or got[3] != want[3]:
+        failures.append(f"graph vs eager ({what}): max_abs_err {worst:.3e}, "
+                        f"launches {got[3]} and {want[3]}")
+    times = {True: [], False: []}
+    for turn in range(n_timed):
+        for graphed in ((False, True) if turn % 2 == 0 else (True, False)):
+            times[graphed].append(run(graphed)[4])
+    return got, times
+
+
+def _graph_profile(what, step, first, step_ms_eager=None):
+    """torch.profiler's view of one warm call ``step(i)`` (a replayed or
+    an eager step), after 5 warm calls and 20 timed ones from index
+    ``first``. Returns its unprofiled wall per step in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(first, first + 5):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(first + 5, first + 25):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(first + 25)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = _device_events(prof)
+    _print_profile(what, events, wall_ms, step_ms)
+    for kernel in ("fused_mlp_fwd_kernel", "fused_mlp_hidden_kernel"):
+        _per_launch(events, kernel, what)
+    return step_ms
+
+
+def _profile_graphed_steps(run, generators, eager_calls, bodies, what):
+    """One replayed and one eager train step of ``run`` (a Trainer or a
+    MemberTrainer drawing from ``generators``), each under the profiler,
+    then one replayed and one eager validation pass, on the side stream
+    the graphed loop uses. ``eager_calls``: (step(i), validate(i)) of
+    the eager loop; ``bodies``: the step and validation bodies that
+    read the index in ``run.step_t``."""
+    from dpivae_tpu_torch.train.graph import Graphed, SideStream
+
+    with SideStream(torch.device("cuda")) as stream:
+        for i in range(10):
+            eager_calls[0](i)
+        eager_calls[1](0)
+        for kind, body, eager, first in zip(
+                ("step", "validation"), bodies, eager_calls, (10, 40)):
+            eager_ms = _graph_profile(f"one eager {what} {kind}", eager,
+                                      first)
+            graph = Graphed(body, generators, stream)
+
+            def replay(i):
+                run.step_t.fill_(i)
+                graph.replay()
+
+            graph_ms = _graph_profile(f"one replayed {what} {kind}", replay,
+                                      first + 30)
+            print(f"graphed {what} {kind}: {graph_ms:.3f} ms replayed "
+                  f"against {eager_ms:.3f} ms eager "
+                  f"({eager_ms / graph_ms:.1f}x)")
+
+
+def _graph_single(ops, failures, card, setup):
+    """Phase 16 (a, b): simple_beam / "dpivae" at bench.py's workload,
+    graphed against eager, timed, one replayed step profiled; then an
+    early stop under the graph. Returns the launches of the counted
+    graphed runs."""
+    from dpivae_tpu_torch.train import train_model
+    from dpivae_tpu_torch.train.train import Trainer
+
+    cfg0, case, model, params, data_train, data_val = setup
+    cfg = cfg0.replace(n_iter=N_ITER_GRAPH, **GRAPH_ANNEALING)
+    total = [0, 0]
+
+    def runner(cfg):
+        def run(graphed):
+            g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+            ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, logs = train_model(cfg, model, case, data_train, data_val,
+                                  params=params, generator=g, device="cuda",
+                                  cuda_graph=graphed)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            return (None, p.state_dict(), logs,
+                    (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches),
+                    seconds)
+        return run
+
+    n = cfg.n_iter
+    got, times = _graph_pair(
+        f"simple_beam / 'dpivae' {n} steps, sigmoid λ and cyclical β_x",
+        runner(cfg), failures, GRAPH_TIMED_RUNS)
+    logs, launches = got[2], got[3]
+    want = (n + n // cfg.val_freq, n)
+    lam, beta_x = (logs.train[:, c] for c in (8, 9))
+    print(f"graphed simple_beam ({card}): launches fused_mlp_fwd "
+          f"{launches[0]}, fused_mlp_hidden {launches[1]} (expected "
+          f"{want[0]}, {want[1]}); λ {float(lam[0]):.3e} -> "
+          f"{float(lam[-1]):.3e} ({len(torch.unique(lam))} values), β_x "
+          f"{len(torch.unique(beta_x))} values")
+    if launches != want:
+        failures.append(f"graphed simple_beam: launches {launches}, "
+                        f"expected {want}")
+    if len(torch.unique(lam)) < 10 or len(torch.unique(beta_x)) < 10:
+        failures.append("graphed simple_beam: the schedules did not change")
+    total = [a + b for a, b in zip(total, launches)]
+    steps_s = {k: statistics.median(n / t for t in v)
+               for k, v in times.items()}
+    print(f"graphed training steps/s ({card}), simple_beam / 'dpivae' "
+          f"use_pallas=True, {n} steps, median of {GRAPH_TIMED_RUNS} warm "
+          f"runs in turns: graphed {steps_s[True]:.1f} ("
+          + " / ".join(f"{n / t:.1f}" for t in times[True])
+          + f"), eager {steps_s[False]:.1f} ("
+          + " / ".join(f"{n / t:.1f}" for t in times[False])
+          + f"): {steps_s[True] / steps_s[False]:.2f}x")
+
+    trainer = Trainer(cfg, case, copy.deepcopy(params), data_train, data_val,
+                      cfg.lambda_g0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    _profile_graphed_steps(
+        trainer, [g], (lambda i: trainer.step(i, generator=g),
+                       lambda i: trainer.validate(i, generator=g)),
+        (lambda: trainer.step_body(g), lambda: trainer.validate_body(g)),
+        "simple_beam / 'dpivae'")
+
+    stop_cfg = cfg.replace(n_iter=N_ITER_GRAPH_STOP, **GRAPH_EARLY_STOP)
+    got, _ = _graph_pair(
+        f"simple_beam early stop (patience 1, n_mc_val 1, 10x lr, "
+        f"{N_ITER_GRAPH_STOP} steps)", runner(stop_cfg), failures)
+    stop = got[2].stop_iter
+    print(f"graphed early stop: latched at iteration {stop} (block "
+          f"{stop // cfg.val_freq}); the graphs replay from block 1")
+    if not cfg.val_freq < stop < N_ITER_GRAPH_STOP:
+        failures.append(f"graphed early stop: stop_iter {stop}, expected a "
+                        f"stop after block 0 within {N_ITER_GRAPH_STOP}")
+    total = [a + b for a, b in zip(total, got[3])]
+    return total
+
+
+def _graph_members(ops, failures, card, grid):
+    """Phase 16 (c, d, e): the 66-member sweep ("auto" and
+    use_pallas=True, timed; with per-member early stops), the 24-member
+    bridge / "DPIVAE-A" grid, and the remat sweep, each graphed against
+    eager. Returns the launches of the counted graphed runs."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.sweep import train_sweep, train_sweep_data
+
+    total = [0, 0]
+
+    def runner(train):
+        def run(graphed):
+            ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train(graphed)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            return (res, res.params, res.logs,
+                    (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches),
+                    seconds)
+        return run
+
+    case = get_case("damped_oscillator")
+    base = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, patience=10**9, n_iter=N_ITER_SWEEP,
+        **GRAPH_ANNEALING)
+    lambdas = torch.linspace(-1.0, 1.0, SWEEP_MEMBERS).tolist()
+    sweep = lambda cfg: runner(lambda graphed: train_sweep(
+        cfg, case, lambdas, seed=SEED, device="cuda", chunk_size=None,
+        cuda_graph=graphed))
+    for name, use_pallas in (("auto", "auto"), ("kernel", True)):
+        cfg = base.replace(use_pallas=use_pallas)
+        got, times = _graph_pair(
+            f"{SWEEP_MEMBERS}-member damped_oscillator sweep, use_pallas "
+            f"{use_pallas!r}, {N_ITER_SWEEP} steps", sweep(cfg), failures,
+            2)
+        member_steps = int(got[2].train_active.sum())
+        rates = {k: statistics.median(member_steps / t for t in v)
+                 for k, v in times.items()}
+        n = N_ITER_SWEEP
+        want = (0, 0) if name == "auto" else (n + n // base.val_freq, n)
+        if got[3] != want:
+            failures.append(f"graphed sweep ({name}): launches {got[3]}, "
+                            f"expected {want}")
+        print(f"graphed sweep member-steps/s ({card}), use_pallas "
+              f"{use_pallas!r}, median of 2 warm runs in turns: graphed "
+              f"{rates[True]:.1f}, eager {rates[False]:.1f} "
+              f"({rates[True] / rates[False]:.2f}x)")
+        total = [a + b for a, b in zip(total, got[3])]
+
+    stop_cfg = base.replace(use_pallas=True, **GRAPH_EARLY_STOP)
+    got, _ = _graph_pair(
+        f"{SWEEP_MEMBERS}-member sweep with per-member early stops "
+        f"(patience 1, n_mc_val 1, 10x lr)", sweep(stop_cfg), failures)
+    stops = got[2].train_active.sum(dim=1)
+    n_stopped = int((stops < stop_cfg.n_iter).sum())
+    print(f"graphed sweep early stops: {n_stopped} of {SWEEP_MEMBERS} "
+          f"members stopped, at iterations "
+          f"{sorted(set(stops.tolist()))[:12]}")
+    if not 0 < n_stopped:
+        failures.append("graphed sweep: no member stopped early")
+    total = [a + b for a, b in zip(total, got[3])]
+
+    remat_cfg = base.replace(use_pallas=True, remat_decode=True,
+                             n_iter=N_ITER_SWEEP_OPTIONS)
+    got, _ = _graph_pair(
+        f"{SWEEP_MEMBERS}-member sweep with remat_decode, "
+        f"{N_ITER_SWEEP_OPTIONS} steps", sweep(remat_cfg), failures)
+    n = N_ITER_SWEEP_OPTIONS
+    want = (2 * n + n // base.val_freq, n)
+    if got[3] != want:
+        failures.append(f"graphed remat sweep: launches {got[3]}, expected "
+                        f"{want}")
+    total = [a + b for a, b in zip(total, got[3])]
+
+    p_cfg, p_case, p_lambdas, dtr, dva = grid
+    got, _ = _graph_pair(
+        f"{len(p_lambdas)}-member bridge / 'DPIVAE-A' grid (P model), "
+        f"use_pallas=True, {p_cfg.n_iter} steps",
+        runner(lambda graphed: train_sweep_data(
+            p_cfg.replace(use_pallas=True), p_case, p_lambdas, dtr, dva,
+            seed=SEED, device="cuda", chunk_size=None, cuda_graph=graphed)),
+        failures)
+    total = [a + b for a, b in zip(total, got[3])]
+
+    _profile_member_graph(base.replace(use_pallas=True), case, lambdas)
+    return total
+
+
+def _profile_member_graph(cfg, case, lambdas):
+    """One replayed and one eager 66-member step under the profiler."""
+    run, gens = _member_run(cfg, case, lambdas)
+    _profile_graphed_steps(
+        run, gens, (lambda i: run.step(i, generators=gens),
+                    lambda i: run.validate(i, generators=gens)),
+        (lambda: run.step_body(gens), lambda: run.validate_body(gens)),
+        f"{len(lambdas)}-member damped_oscillator")
+
+
+def _graphs(ops, failures, card, setup, grid):
+    """Phase 16. Returns the (forward, hidden) launches of its counted
+    graphed runs."""
+    single = _graph_single(ops, failures, card, setup)
+    members = _graph_members(ops, failures, card, grid)
+    return tuple(a + b for a, b in zip(single, members))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2843,7 +3168,8 @@ def main() -> int:
     # This slice's paths: the serving artifact, then the transfer study
     # (bridge, both presets, 24 members each) and its use_pallas=True grid.
     a_fwd, served = _artifact(ops, failures, card, serve_setup, request)
-    (t_fwd, t_hidden), transfer_steps = _transfer(ops, failures, card)
+    (t_fwd, t_hidden), transfer_steps, grid = _transfer(ops, failures,
+                                                        card)
     print(f"transfer grid member-steps/s ({card}): use_pallas 'auto' "
           f"(plain) {transfer_steps['auto']:.1f}, use_pallas=True (kernels) "
           f"{transfer_steps['kernel']:.1f} ({TRANSFER_RUNS * 4} members x "
@@ -2859,11 +3185,15 @@ def main() -> int:
     # and the three example programs.
     e_fwd, e_hidden = _phase15(ops, failures, card, served, request)
 
+    # This slice's path: the graphed training loop against the eager one.
+    g_fwd, g_hidden = _graphs(ops, failures, card, setup, grid)
+
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
                  + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd
-                 + f_fwd + m_fwd + e_fwd)
+                 + f_fwd + m_fwd + e_fwd + g_fwd)
     hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
-                    + w_hidden + y_hidden + t_hidden + m_hidden + e_hidden)
+                    + w_hidden + y_hidden + t_hidden + m_hidden + e_hidden
+                    + g_hidden)
     print(f"launches on the main paths: fused_mlp_fwd simple_beam serving "
           f"{serve_launches} + training {fwd_launches}, bridge serving "
           f"{b_launches} + training {b_fwd}, damped_oscillator serving "
@@ -2871,13 +3201,14 @@ def main() -> int:
           f"sweep {w_fwd} (member-batched), study {y_fwd}, artifact phase "
           f"{a_fwd} (the live kernel Predictor), transfer {t_fwd} "
           f"(member-batched), figures {f_fwd}, mesh {m_fwd}, remat sweeps, "
-          f"CNN model and examples {e_fwd} = {fwd_total}; "
+          f"CNN model and examples {e_fwd}, graphed loop {g_fwd} = "
+          f"{fwd_total}; "
           f"fused_mlp_hidden simple_beam "
           f"training {hidden_launches} + bridge training {b_hidden} + single "
           f"run {s_hidden} + remat and bf16 {d_hidden} + sweep {w_hidden} + "
           f"study {y_hidden} + transfer {t_hidden} + mesh {m_hidden} + "
-          f"remat sweeps, CNN model and examples {e_hidden} = "
-          f"{hidden_total}")
+          f"remat sweeps, CNN model and examples {e_hidden} + graphed loop "
+          f"{g_hidden} = {hidden_total}")
 
     if failures:
         for f in failures:

@@ -444,9 +444,11 @@ class DPIVAE:
                                             eps=noise["z_prior"])
 
         # Raw physical covariates concatenated to z_x, tiled over the MC
-        # axis; idx_c_phys == () means no-op.
+        # axis; idx_c_phys == () means no-op. The columns are stacked from
+        # views: indexing with a list would copy an index tensor from the
+        # host on every call, which a CUDA graph cannot capture.
         if self.idx_c_phys:
-            c_phys = c[..., list(self.idx_c_phys)]
+            c_phys = torch.stack([c[..., i] for i in self.idx_c_phys], dim=-1)
             c_phys = c_phys.expand(n, *c_phys.shape)
             zx_in = torch.cat((zx, c_phys), dim=-1)
         else:

@@ -34,7 +34,9 @@ code reaches the batched launches, one per call for all members.
 
 ``fused_mlp.launches`` and ``fused_mlp_hidden.launches`` count each
 kernel's launches (a batched launch counts one), so a run can show that
-it went through the kernels.
+it went through the kernels. A CUDA graph's replay (``train/graph.py``)
+adds the launches its capture recorded, so a graphed loop counts as its
+eager run does.
 
 ``auto_select`` resolves ``use_pallas="auto"`` for a call shape on a
 device (the counterpart of ``auto_select``, pallas_mlp.py:124-176).

@@ -137,7 +137,7 @@ def _gather_members(mesh: Mesh, member_axis: str, a: torch.Tensor,
 
 
 def _sharded_members(config, case, mesh, member_axis, lam, keys, device,
-                     chunk_size, hyper=None, data=None):
+                     chunk_size, hyper=None, data=None, cuda_graph="auto"):
     """The members of a sharded sweep: this rank's slice (padded, or exact
     for ``data``) trained in chunks of ``chunk_size``, then every rank's
     gathered. With a "dp" axis of size above 1 each member's steps are
@@ -153,7 +153,7 @@ def _sharded_members(config, case, mesh, member_axis, lam, keys, device,
                      if hyper else None,
                      data=None if data is None
                      else tuple(tuple(pick(a) for a in d) for d in data),
-                     mesh=dp),
+                     mesh=dp, cuda_graph=cuda_graph),
         local_n, _chunk(chunk_size, local_n, config, case, device),
         label="sweep")
     gather = lambda a: _gather_members(mesh, member_axis, a, n_members)
@@ -313,11 +313,13 @@ _MEMORY_SHARE = 0.5
 
 def member_bytes(config: TrainConfig, case: Case) -> int:
     """Bytes one member needs at its peak, reckoned from the shapes: the
-    larger of the validation pass (n_val x n_mc_val rows, no graph) and
-    the training step (n_batch x n_mc_train rows, its activations kept
-    for the backward, counted three times), each row holding the decoder
-    outputs and hidden layers and the latents; plus params, gradients,
-    both Adam moments and two saved states for the early stop."""
+    validation pass (n_val x n_mc_val rows, no autograd graph) and the
+    training step (n_batch x n_mc_train rows, its activations kept for the
+    backward, counted three times), both live at once (each is a CUDA
+    graph holding its own memory pool, replayed in turns), each row
+    holding the decoder outputs and hidden layers and the latents; plus
+    params, gradients, both Adam moments and two saved states for the
+    early stop."""
     hidden = int(config.hidden_width or DECODER_X_HIDDEN)
     nz = case.nz_x + config.nz_c + config.nz_y
     per_row = 4 * (4 * case.nd_x + 3 * hidden + 8 * nz + case.nd_c
@@ -327,7 +329,7 @@ def member_bytes(config: TrainConfig, case: Case) -> int:
     data = 4 * (config.n_train + config.n_val) * (
         case.nd_x + case.nd_c + case.nd_y)
     n_params = 100_000 + 4 * hidden * (case.nd_x + nz + hidden)
-    return int(max(val, train) + data + 4 * 10 * n_params)
+    return int(val + train + data + 4 * 10 * n_params)
 
 
 def _free_bytes(device: torch.device) -> int:
@@ -543,12 +545,14 @@ def _chunked_execute(run_chunk: Callable, n_members: int, chunk_size: int,
 
 def _run_members(config: TrainConfig, case: Case, lambdas: np.ndarray,
                  keys: np.ndarray, device: torch.device, hyper=None,
-                 data=None, mesh: Optional[Mesh] = None):
+                 data=None, mesh: Optional[Mesh] = None, cuda_graph="auto"):
     """The chunk runner: each member of a slice starts from its generator
     (data unless given, init), then all train at once (data-parallel over
-    ``mesh``'s "dp" axis when given)."""
+    ``mesh``'s "dp" axis when given), each chunk capturing its own CUDA
+    graphs when ``cuda_graph`` resolves so (``build_member_train_fn``)."""
     template = make_template_model(config, case, device=device)
-    train_fn = build_member_train_fn(config, case, mesh)
+    train_fn = build_member_train_fn(config, case, mesh,
+                                     cuda_graph=cuda_graph)
 
     def run(sl):
         gens = _generators(keys[sl], device)
@@ -590,6 +594,7 @@ def train_sweep(
     gc_stale_chunks: bool = False,
     device: DeviceLike = None,
     member_axis: str = "sweep",
+    cuda_graph="auto",
 ) -> SweepResult:
     """Train the (λ × run) grid in member-batched chunks on ``device``
     (None means CUDA).
@@ -610,6 +615,9 @@ def train_sweep(
             logs_chunk)`` with CPU tensors for every completed chunk.
         gc_stale_chunks: with ``checkpoint_dir``, delete chunk files no
             registered sweep owns (``clean_checkpoint_dir``).
+        cuda_graph: "auto" (each chunk's steps and validations replay
+            CUDA graphs on CUDA), False (eager) or True
+            (``train.train.build_member_train_fn``).
 
     Returns:
         SweepResult ordered λ-major (member = i_lambda * n_runs + i_run).
@@ -625,11 +633,13 @@ def train_sweep(
     keys = _keys(seed, np.arange(n_members))
     if mesh is not None:
         params, logs = _sharded_members(config, case, mesh, member_axis, lam,
-                                        keys, device, chunk_size)
+                                        keys, device, chunk_size,
+                                        cuda_graph=cuda_graph)
         return SweepResult(params, logs, lam, keys, str(device))
     chunk_size = _chunk(chunk_size, n_members, config, case, device)
     params, logs = _chunked_execute(
-        _run_members(config, case, lam, keys, device), n_members, chunk_size,
+        _run_members(config, case, lam, keys, device, cuda_graph=cuda_graph),
+        n_members, chunk_size,
         checkpoint_dir, chunk_callback,
         manifest=(_sweep_manifest(config, case, (keys, lam), n_members,
                                   chunk_size, flavor=("lambda-sweep",
@@ -653,6 +663,7 @@ def train_hyper_sweep(
     gc_stale_chunks: bool = False,
     device: DeviceLike = None,
     member_axis: str = "sweep",
+    cuda_graph="auto",
 ) -> HyperSweepResult:
     """Train a hyperparameter grid in member-batched chunks: any subset of
     ``TRACEABLE_HYPER_FIELDS`` (per-group learning rates and weight
@@ -667,8 +678,8 @@ def train_hyper_sweep(
         lambdas: optional per-row GRL strengths (default
             ``config.lambda_g0``).
         seed, mesh, chunk_size, checkpoint_dir, chunk_callback,
-            gc_stale_chunks, device, member_axis: as in ``train_sweep``
-            (the digest covers the grid).
+            gc_stale_chunks, device, member_axis, cuda_graph: as in
+            ``train_sweep`` (the digest covers the grid).
     """
     _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
     if gc_stale_chunks and checkpoint_dir is None:
@@ -703,12 +714,13 @@ def train_hyper_sweep(
     if mesh is not None:
         params, logs = _sharded_members(config, case, mesh, member_axis, lam,
                                         keys, device, chunk_size,
-                                        hyper=grid_out)
+                                        hyper=grid_out, cuda_graph=cuda_graph)
         return HyperSweepResult(params, logs, grid_out, lam, keys,
                                 str(device))
     chunk_size = _chunk(chunk_size, n_members, config, case, device)
     params, logs = _chunked_execute(
-        _run_members(config, case, lam, keys, device, hyper=grid_out),
+        _run_members(config, case, lam, keys, device, hyper=grid_out,
+                     cuda_graph=cuda_graph),
         n_members, chunk_size, checkpoint_dir, chunk_callback,
         manifest=(_sweep_manifest(
             config, case, (keys, lam, *grid_out.values()), n_members,
@@ -732,14 +744,15 @@ def train_sweep_data(
     gc_stale_chunks: bool = False,
     device: DeviceLike = None,
     member_axis: str = "sweep",
+    cuda_graph="auto",
 ) -> SweepResult:
     """Sweep over given per-member datasets: ``data_train``/``data_val``
     are (x, c, y) whose arrays carry a leading member axis (e.g. the
     domain-transfer grid of the regression study). Each member's
     generator, from (seed, m), draws its init and training noise;
-    chunking, checkpoints and ``mesh`` as in ``train_sweep`` (the digest
-    covers the datasets), except that with a mesh the member count must
-    divide by the ``member_axis`` size."""
+    chunking, checkpoints, ``mesh`` and ``cuda_graph`` as in
+    ``train_sweep`` (the digest covers the datasets), except that with a
+    mesh the member count must divide by the ``member_axis`` size."""
     _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
     if gc_stale_chunks and checkpoint_dir is None:
         raise ValueError("gc_stale_chunks requires checkpoint_dir")
@@ -762,12 +775,13 @@ def train_sweep_data(
                              "for train_sweep_data")
         params, logs = _sharded_members(config, case, mesh, member_axis, lam,
                                         keys, device, chunk_size,
-                                        data=(data_train, data_val))
+                                        data=(data_train, data_val),
+                                        cuda_graph=cuda_graph)
         return SweepResult(params, logs, lam, keys, str(device))
     chunk_size = _chunk(chunk_size, n_members, config, case, device)
     params, logs = _chunked_execute(
         _run_members(config, case, lam, keys, device,
-                     data=(data_train, data_val)),
+                     data=(data_train, data_val), cuda_graph=cuda_graph),
         n_members, chunk_size, checkpoint_dir, chunk_callback,
         manifest=(_sweep_manifest(
             config, case, (keys, lam, *data_train, *data_val), n_members,

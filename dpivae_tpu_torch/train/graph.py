@@ -1,0 +1,132 @@
+"""CUDA-graph capture and replay of a training body (counterpart of the JAX
+package's compiled loop, dpivae_tpu/train/train.py:398-500: the inner scan
+over a block's steps and the outer scan over validation blocks, jitted
+once and cached by ``get_train_fn``).
+
+The card's counterpart of one XLA program is a CUDA graph: a body's
+launches (forward, backward, clip and Adam of a train step, or the whole
+validation pass) recorded once and replayed with one launch. ``Graphed``
+captures a body on a side stream, on its own memory pool, after
+registering every CUDA ``torch.Generator`` the body draws from, so that
+each replay advances each generator as the eager body would (the default
+generator alone is registered by ``torch.cuda.graph`` itself). Replays
+then draw the same numbers an eager run would.
+
+A captured body reads nothing from the host, and every value that changes
+from call to call (the step index, the schedule row, Adam's step count)
+lives in a device tensor the body reads: a Python number is baked into the
+graph at capture.
+
+The fused-MLP wrappers count their launches in Python
+(``fused_mlp.launches``, ``fused_mlp_hidden.launches``), which a replay
+does not run. ``Graphed`` takes back what the capture added to the counts
+and adds it again on every replay, so the counts stay those of an eager
+run.
+
+``resolve_cuda_graph`` resolves a trainer's ``cuda_graph`` argument:
+"auto" is True on CUDA without a mesh. With a mesh the step holds NCCL
+collectives, whose capture is not done here, so the data-parallel loop
+stays eager.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from dpivae_tpu_torch.ops import fused_mlp as _ops
+
+_COUNTED = (_ops.fused_mlp, _ops.fused_mlp_hidden)
+
+
+def resolve_cuda_graph(cuda_graph, device: Optional[torch.device],
+                       mesh=None) -> bool:
+    """``cuda_graph`` as a bool: "auto" is True on a CUDA device without a
+    mesh and False otherwise; True raises with a mesh or on another
+    device; False stays False. With a mesh ``device`` is not read."""
+    if not (cuda_graph == "auto" or isinstance(cuda_graph, bool)):
+        raise ValueError(f"cuda_graph must be True, False or 'auto', got "
+                         f"{cuda_graph!r}")
+    if mesh is not None:
+        if cuda_graph is True:
+            raise ValueError("cuda_graph=True is not supported with mesh= "
+                             "(the step's collectives are not captured); "
+                             "pass cuda_graph='auto' or False")
+        return False
+    if cuda_graph is True and device.type != "cuda":
+        raise ValueError(f"cuda_graph=True needs a CUDA device, training is "
+                         f"on {device}")
+    return cuda_graph is True or (cuda_graph == "auto"
+                                  and device.type == "cuda")
+
+
+def _counts():
+    return [f.launches for f in _COUNTED]
+
+
+class Graphed:
+    """``body()`` captured once into a CUDA graph; ``replay()`` runs it
+    again and returns its output tensors (the same tensors every time,
+    overwritten by each replay).
+
+    Args:
+        body: a function of no arguments that launches its work on the
+            current stream and returns a tensor or a tuple of tensors. It
+            must have run eagerly on ``stream`` first (lazy allocations,
+            the ctypes kernels' first-launch attributes, Adam's state).
+        generators: every CUDA generator the body draws from.
+        stream: the side stream to capture on.
+
+    A capture or replay that fails raises; nothing falls back to eager.
+    """
+
+    def __init__(self, body: Callable, generators: Iterable[torch.Generator],
+                 stream: torch.cuda.Stream):
+        self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            if g.device.type != "cuda":
+                raise ValueError(
+                    f"a graphed loop draws from CUDA generators only, got one "
+                    f"on {g.device}; pass a CUDA generator, or "
+                    f"cuda_graph=False to draw from this one eagerly")
+            self.graph.register_generator_state(g)
+        before = _counts()
+        # thread_local: another thread's CUDA calls during the capture (an
+        # NCCL watchdog's, say) do not void it; the autograd engine's
+        # launches onto the capturing stream are captured all the same.
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = body()
+        self.launches = [a - b for a, b in zip(_counts(), before)]
+        for f, n in zip(_COUNTED, before):
+            f.launches = n
+
+    def replay(self):
+        self.graph.replay()
+        for f, n in zip(_COUNTED, self.launches):
+            f.launches += n
+        return self.out
+
+
+class SideStream:
+    """The stream a graphed loop runs on, as a context: it waits for the
+    work queued before it, runs the loop (eager warm-up, captures and
+    replays) as its current stream, and the caller's stream waits for it
+    on exit."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device=device)
+        self._ctx: Optional[torch.cuda.StreamContext] = None
+
+    def __enter__(self) -> torch.cuda.Stream:
+        self._caller = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(self._caller)
+        self._ctx = torch.cuda.stream(self.stream)
+        self._ctx.__enter__()
+        return self.stream
+
+    def __exit__(self, *exc):
+        self._ctx.__exit__(*exc)
+        self._caller.wait_stream(self.stream)
+        return False

@@ -5,11 +5,15 @@ learning rate and L2 weight decay. ``torch.optim.Adam``'s ``weight_decay``
 adds the decay to the gradient before the moments (not AdamW), with
 b1 0.9, b2 0.999 and eps 1e-8: the JAX package's ``_grouped_adam``.
 ``MemberAdam`` is the same update for the stacked members of a sweep.
+
+Both keep Adam's step count on the device and form the bias corrections
+``1 - b^t`` there, in float64 as ``torch.optim.Adam``'s fused update does,
+so an update reads no host value and can be captured in a CUDA graph
+(``train/graph.py``); the eager loop runs the same update.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -50,7 +54,12 @@ def group_hparams(config: TrainConfig) -> Dict[str, Tuple[float, float]]:
 def make_optimizer(config: TrainConfig, params) -> torch.optim.Adam:
     """The grouped Adam over ``params`` (a ``DPIVAEParams``). With
     ``config.clip_gradients`` the caller clips with ``clip_grad_global_norm_``
-    before each step."""
+    before each step.
+
+    It is the fused update (one kernel per step on the card, one loop on
+    the CPU), whose step counts are device tensors and whose Python side
+    reads none of them; on CUDA it is also ``capturable``, which a CUDA
+    graph's capture requires."""
     groups = group_hparams(config)
     names = {name for name, _ in params.named_children()} | {"log_sigma_x"}
     if names != set(groups):
@@ -64,7 +73,9 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Adam:
         tensors = ([member] if isinstance(member, torch.nn.Parameter)
                    else list(member.parameters()))
         param_groups.append(dict(params=tensors, lr=lr, weight_decay=wd))
-    return torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8)
+    cuda = params.log_sigma_x.device.type == "cuda"
+    return torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8,
+                            fused=True, capturable=cuda)
 
 
 def clip_grad_global_norm_(parameters: Iterable[torch.Tensor],
@@ -104,7 +115,11 @@ class MemberAdam:
     cannot take. With the same values for every member each member's
     update is ``torch.optim.Adam``'s: decay added to the gradient before
     the moments, b1 0.9, b2 0.999, eps 1e-8, the step
-    ``lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps)``.
+    ``lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps)``. The step
+    count ``t`` is a float64 device tensor shared by the members, and the
+    bias corrections are formed from it on the device, in float64 (as
+    the fused ``torch.optim.Adam`` of the single run forms them), then
+    applied in float32.
     """
 
     BETAS = (0.9, 0.999)
@@ -151,7 +166,7 @@ class MemberAdam:
                          if config.clip_gradients else None)
         self.exp_avg = torch.zeros_like(self.flat)
         self.exp_avg_sq = torch.zeros_like(self.flat)
-        self.t = 0
+        self.t = torch.zeros((), dtype=torch.float64, device=device)
 
     def flat_grads(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         return torch.cat([grads[n].reshape(self.n_members, -1)
@@ -175,12 +190,13 @@ class MemberAdam:
         if self.any_wd:
             g = g + self.wd * self.flat
         b1, b2 = self.BETAS
-        self.t += 1
+        self.t.add_(1)
         self.exp_avg.lerp_(g, 1 - b1)
         self.exp_avg_sq.mul_(b2).addcmul_(g, g, value=1 - b2)
-        denom = (self.exp_avg_sq.sqrt() / math.sqrt(1 - b2 ** self.t)).add_(
-            self.EPS)
-        step = self.exp_avg * (self.lr / (1 - b1 ** self.t))
+        bias1 = 1 - torch.pow(b1, self.t)
+        bias2 = 1 - torch.pow(b2, self.t)
+        denom = (self.exp_avg_sq.sqrt() / bias2.sqrt()).add_(self.EPS)
+        step = self.exp_avg * (self.lr / bias1)
         self.flat.addcdiv_(step, denom, value=-1.0)
 
     def state(self) -> Tuple[torch.Tensor, ...]:

@@ -2,10 +2,10 @@
 526-596).
 
 The JAX package compiles the whole training into one program (a scan over
-validation blocks). Here the same loop runs eagerly, in the same order:
-each block of ``val_freq`` iterations runs one train step, one validation
-of ``n_val`` points x ``n_mc_val`` samples under ``no_grad``, the
-early-stop update, then the other ``val_freq - 1`` steps. A stop that
+validation blocks). Here the same loop runs from Python, in the same
+order: each block of ``val_freq`` iterations runs one train step, one
+validation of ``n_val`` points x ``n_mc_val`` samples under ``no_grad``,
+the early-stop update, then the other ``val_freq - 1`` steps. A stop that
 latches at a block's validation ends the run there, so the params returned
 are those right after that block's first step (the reference's ``break``);
 a partial last block stops at ``n_iter``.
@@ -35,12 +35,28 @@ the global training shape, as in the JAX package.
 ``train_model(progress=...)`` narrates one line per validation block on
 stderr (``make_progress_printer``), at the block's host read.
 
-Not ported: scan unrolling, the executable cache and a CUDA-graph or
-compiled step loop (ROADMAP.md, queue 1, item 5).
+On CUDA the loop is graphed (``cuda_graph="auto"``, ``train/graph.py``):
+the first block runs eagerly on a side stream (the real step 0,
+validation 0 and steps 1..vf-1, which also warms every lazy allocation and
+kernel attribute), then one train step and one validation pass are each
+captured into a CUDA graph and replayed in the loop's order, the step
+index written into a device tensor before each replay. A step replays
+forward, backward (with the fused-MLP kernels and ``remat_decode``'s
+recompute), clip and Adam in one launch; the members of a batched training
+replay ``vmap(grad(...))`` and ``MemberAdam`` the same way, and their
+early-stop freeze (``MemberAdam.state``/``restore``) stays outside the
+graphs, in place on the buffers the graphs read. The graphed loop gives
+the eager loop's results (``cuda_graph=False``). With a ``mesh`` the loop
+stays eager: its NCCL collectives are not captured.
+
+Not ported: scan unrolling, the executable cache, and the early-stop
+decision on the device (a whole block in one graph, as JAX's ``pick``
+does); the loop reads the validation loss once per block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -57,6 +73,11 @@ from dpivae_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_sum_,
     replicated,
+)
+from dpivae_tpu_torch.train.graph import (
+    Graphed,
+    SideStream,
+    resolve_cuda_graph,
 )
 from dpivae_tpu_torch.train.optim import (
     MemberAdam,
@@ -199,7 +220,12 @@ class Trainer:
     params' device, and the annealing schedules evaluated for every step.
     With ``mesh``, data-parallel over its ``dp_axis`` (module docstring):
     ``step``'s and ``validate``'s explicit ``batch_idx`` and ``noise`` are
-    then the global batch's, of which this rank keeps its rows."""
+    then the global batch's, of which this rank keeps its rows.
+
+    ``step(i)`` and ``validate(i)`` write ``i`` into the device tensor
+    ``step_t`` and run ``step_body`` / ``validate_body``, which read the
+    schedule row through it and no host value: those are the bodies a CUDA
+    graph captures (``build_train_fn``)."""
 
     def __init__(self, config: TrainConfig, case: Case, params: DPIVAEParams,
                  data_train, data_val, lambda_g0: float,
@@ -235,11 +261,17 @@ class Trainer:
                                     else float(sched(step))))
         self.schedule = torch.tensor(rows, dtype=torch.float32).reshape(-1, 4)
         self._schedule_dev = self.schedule.to(device)
+        self.step_t = torch.zeros(1, dtype=torch.long, device=device)
 
-    def _normalized_loss(self, data, n_mc, step_idx, divisors, generator,
+    def _schedule_row(self) -> torch.Tensor:
+        """The (4,) schedule row of the step in ``step_t``, on the device."""
+        return self._schedule_dev.index_select(0, self.step_t)[0]
+
+    def _normalized_loss(self, data, n_mc, sched, divisors, generator,
                          noise):
-        """(ELBO / divisor with its graph, the 8 normalised components)."""
-        lam, bx, bc, by = self.schedule[step_idx].tolist()
+        """(ELBO / divisor with its graph, the 8 normalised components),
+        with the loss weights of the (4,) schedule row ``sched``."""
+        lam, bx, bc, by = sched
         cfg = self.config
         out = self.model.loss(
             self.params, *data, n=n_mc, beta_x=bx, beta_c=bc, beta_y=by,
@@ -254,7 +286,14 @@ class Trainer:
         """One optimizer step on a batch drawn from ``generator`` (or the
         rows ``batch_idx``, with the encoder noise ``noise``). Returns the
         step's log row in TRAIN_COLUMNS order, on the device."""
+        self.step_t.fill_(step_idx)
+        return self.step_body(generator, batch_idx, noise)
+
+    def step_body(self, generator=None, batch_idx=None,
+                  noise=None) -> torch.Tensor:
+        """``step`` at the index in ``step_t``."""
         cfg = self.config
+        sched = self._schedule_row()
         if batch_idx is None:
             batch_idx = _sample_batch(generator, cfg.n_train, cfg.n_batch,
                                       self.device)
@@ -266,7 +305,7 @@ class Trainer:
         batch = tuple(a[batch_idx] for a in self.data_train)
         self.optimizer.zero_grad(set_to_none=True)
         scalar, comps = self._normalized_loss(
-            batch, cfg.n_mc_train, step_idx, self._div_train, generator, noise)
+            batch, cfg.n_mc_train, sched, self._div_train, generator, noise)
         scalar.backward()
         if self.shard is not None:
             grads = [p.grad for p in self.params.parameters()
@@ -276,19 +315,24 @@ class Trainer:
             clip_grad_global_norm_(self.params.parameters(), cfg.max_grad_norm)
         self.optimizer.step()
         sigma_x = torch.exp(self.params.log_sigma_x.detach()).reshape(1)
-        return torch.cat([comps, self._schedule_dev[step_idx], sigma_x])
+        return torch.cat([comps, sched, sigma_x])
 
     def validate(self, step_idx: int, *, generator=None,
                  noise=None) -> torch.Tensor:
         """The validation components in VAL_COLUMNS order, on the device."""
+        self.step_t.fill_(step_idx)
+        return self.validate_body(generator, noise)
+
+    def validate_body(self, generator=None, noise=None) -> torch.Tensor:
+        """``validate`` at the index in ``step_t``."""
         cfg = self.config
         if self.shard is not None:
             noise = self._local_noise(noise, generator, cfg.n_mc_val,
                                       cfg.n_val, self.shard.val)
         with torch.no_grad():
             _, comps = self._normalized_loss(
-                self.data_val, cfg.n_mc_val, step_idx, self._div_val,
-                generator, noise)
+                self.data_val, cfg.n_mc_val, self._schedule_row(),
+                self._div_val, generator, noise)
         if self.shard is not None:
             all_reduce_sum_([comps], self.shard.group)
         return comps
@@ -303,9 +347,32 @@ class Trainer:
         return {"z": eps[:, rows]}
 
 
+def _graphed_calls(run, generators, stream, step_body, validate_body):
+    """``(step(i), validate(i))`` for the loop, each writing ``i`` into
+    ``run.step_t`` and replaying a CUDA graph of ``step_body`` /
+    ``validate_body`` (``train/graph.py``), captured here on ``stream``,
+    each on its own memory pool (the two replay interleaved). Both
+    bodies must have run eagerly on ``stream`` before."""
+
+    def replayer(graph):
+        def call(i):
+            run.step_t.fill_(i)
+            return graph.replay()
+        return call
+
+    return tuple(replayer(Graphed(body, generators, stream))
+                 for body in (step_body, validate_body))
+
+
+def _loop_stream(graphed: bool, device: torch.device):
+    """The context a loop runs in: a ``SideStream`` when it is graphed,
+    else nothing."""
+    return SideStream(device) if graphed else contextlib.nullcontext()
+
+
 def build_train_fn(config: TrainConfig, case: Case,
                    mesh: Optional[Mesh] = None, dp_axis: str = "dp",
-                   progress=False):
+                   progress=False, cuda_graph="auto"):
     """Returns ``train_fn(params, generator, data_train, data_val,
     lambda_g0) -> (params, TrainLogs)``.
 
@@ -319,8 +386,15 @@ def build_train_fn(config: TrainConfig, case: Case,
     first rank before the first step. ``progress``: True prints
     ``make_progress_printer``'s line per validation block; a callable gets
     ``(iter, train_row, val_row, es_counter, active)``, the rows as numpy,
-    at the block's host read (not with a mesh).
+    at the block's host read (not with a mesh). ``cuda_graph``
+    (``train.graph.resolve_cuda_graph``): "auto" replays CUDA graphs of
+    the step and the validation after an eager first block on CUDA
+    without a mesh (module docstring), False runs every step eagerly,
+    True insists on graphs (and raises on the CPU or with a mesh);
+    ``generator`` must then be a CUDA generator.
     """
+    if mesh is not None:
+        resolve_cuda_graph(cuda_graph, None, mesh)
     if progress and mesh is not None:
         raise ValueError(
             "progress narration is not supported with mesh= (JAX rejects "
@@ -334,30 +408,39 @@ def build_train_fn(config: TrainConfig, case: Case,
 
     def train_fn(params, generator, data_train, data_val, lambda_g0):
         params = copy.deepcopy(params)
+        device = params.log_sigma_x.device
+        graphed = resolve_cuda_graph(cuda_graph, device, mesh)
         if mesh is not None:
             replicated(mesh, params, dp_axis)
         run = Trainer(config, case, params, data_train, data_val, lambda_g0,
                       mesh, dp_axis)
-        device = params.log_sigma_x.device
         nan = lambda *shape: torch.full(shape, float("nan"), device=device)
         train, val = nan(n_iter, len(TRAIN_COLUMNS)), nan(n_blocks,
                                                           len(VAL_COLUMNS))
         es = early_stop_init()
         stop_iter, live_blocks = n_iter, n_blocks
-        for block in range(n_blocks):
-            start = block * vf
-            train[start] = run.step(start, generator=generator)
-            val[block] = run.validate(start, generator=generator)
-            es = early_stop_update(es, float(val[block, 0]), config.patience,
-                                   config.min_delta)
-            if progress_cb is not None:
-                progress_cb(start, train[start].cpu().numpy(),
-                            val[block].cpu().numpy(), es.counter, True)
-            if es.stopped:
-                stop_iter, live_blocks = start + 1, block + 1
-                break
-            for i in range(start + 1, min(start + vf, n_iter)):
-                train[i] = run.step(i, generator=generator)
+        step = lambda i: run.step(i, generator=generator)
+        validate = lambda i: run.validate(i, generator=generator)
+        with _loop_stream(graphed, device) as stream:
+            for block in range(n_blocks):
+                if graphed and block == 1:
+                    step, validate = _graphed_calls(
+                        run, [generator], stream,
+                        lambda: run.step_body(generator),
+                        lambda: run.validate_body(generator))
+                start = block * vf
+                train[start] = step(start)
+                val[block] = validate(start)
+                es = early_stop_update(es, float(val[block, 0]),
+                                       config.patience, config.min_delta)
+                if progress_cb is not None:
+                    progress_cb(start, train[start].cpu().numpy(),
+                                val[block].cpu().numpy(), es.counter, True)
+                if es.stopped:
+                    stop_iter, live_blocks = start + 1, block + 1
+                    break
+                for i in range(start + 1, min(start + vf, n_iter)):
+                    train[i] = step(i)
         steps = torch.arange(n_iter, device=device)
         blocks = torch.arange(n_blocks, device=device)
         return params, TrainLogs(
@@ -372,7 +455,7 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
                 params: Optional[DPIVAEParams] = None,
                 generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, mesh: Optional[Mesh] = None,
-                dp_axis: str = "dp", progress="auto"):
+                dp_axis: str = "dp", progress="auto", cuda_graph="auto"):
     """Train a DPIVAE on ``device`` (None means CUDA).
 
     ``model`` (from ``setup_model``) initializes the params when none are
@@ -383,8 +466,9 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
     over ``dp_axis`` (``build_train_fn``); every rank calls this with the
     same arguments and gets the same result. ``progress`` narrates each
     validation block (``build_train_fn``); "auto" (``resolve_progress``)
-    only on the CPU at ``n_iter`` >= 5000 without a mesh. Returns (trained
-    params, logs).
+    only on the CPU at ``n_iter`` >= 5000 without a mesh. ``cuda_graph``
+    (``build_train_fn``): "auto" replays CUDA graphs on CUDA without a
+    mesh. Returns (trained params, logs).
     """
     device = resolve_device(device)
     if mesh is not None:
@@ -409,7 +493,8 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
         raise ValueError(
             f"params are on {params.log_sigma_x.device}, training on {device}"
         )
-    train_fn = build_train_fn(config, case, mesh, dp_axis, progress)
+    train_fn = build_train_fn(config, case, mesh, dp_axis, progress,
+                              cuda_graph)
     return train_fn(params, generator, data_train, data_val, config.lambda_g0)
 
 
@@ -504,6 +589,10 @@ class MemberTrainer:
             from its generator and this rank keeps its rows; the (M, ...)
             gradients and (M, 8) components are summed over the axis
             outside ``vmap``, before the per-member clip.
+
+    As in ``Trainer``, ``grads``/``step``/``validate`` write the step index
+    into ``step_t``, and ``step_body``/``validate_body`` read it: the
+    bodies a CUDA graph captures, drawing from the members' generators.
     """
 
     def __init__(self, config: TrainConfig, case: Case, params: dict,
@@ -558,6 +647,8 @@ class MemberTrainer:
         # single run forms each row.
         self.schedule = (scales.double().cpu()[:, None, :]
                          * torch.from_numpy(shape)[None]).float().to(device)
+        self.step_t = torch.zeros(1, dtype=torch.long, device=device)
+        self._members = torch.arange(m, device=device)[:, None]
 
         def divisors(n_points):
             denom = n_points * (case.nd_x + case.nd_y + case.nd_c)
@@ -600,27 +691,34 @@ class MemberTrainer:
         return torch.stack([encoder_noise(self.template, g, n, batch,
                                           self.device) for g in generators])
 
+    def _schedule_rows(self) -> torch.Tensor:
+        """The (M, 4) schedule rows of the step in ``step_t``."""
+        return self.schedule.index_select(1, self.step_t)[:, 0]
+
     def grads(self, step_idx: int, *, generators=None, batch_idx=None,
               noise=None):
         """(comps (M, 8), gradients {name: (M, ...)}) of one step's
         normalised loss, on a batch drawn from ``generators`` (one per
         member) or the (M, n_batch) rows ``batch_idx`` with the encoder
         normals ``noise={"z": (M, n, n_batch, nz)}``."""
+        self.step_t.fill_(step_idx)
+        return self._grads(self._schedule_rows(), generators, batch_idx,
+                           noise)
+
+    def _grads(self, sched, generators, batch_idx, noise):
         cfg = self.config
         if batch_idx is None:
             batch_idx = self._draw_batch(generators)
         eps = (self._draw_noise(generators, cfg.n_mc_train, cfg.n_batch)
                if noise is None else noise["z"])
-        rows = torch.arange(self.n_members, device=self.device)[:, None]
         batch_idx = torch.as_tensor(batch_idx, device=self.device)
         eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
         if self.shard is not None:
             batch_idx = batch_idx[:, self.shard.train]
             eps = eps[:, :, self.shard.train]
-        batch = tuple(a[rows, batch_idx] for a in self.data_train)
-        grads, comps = self._grad_fn(
-            self.params, *batch, eps, self.scalers,
-            self.schedule[:, step_idx], self.alphas)
+        batch = tuple(a[self._members, batch_idx] for a in self.data_train)
+        grads, comps = self._grad_fn(self.params, *batch, eps, self.scalers,
+                                     sched, self.alphas)
         if self.shard is not None:
             all_reduce_sum_(list(grads.values()) + [comps], self.shard.group)
         return comps, grads
@@ -629,15 +727,26 @@ class MemberTrainer:
              noise=None) -> torch.Tensor:
         """One optimizer step of every member; returns the (M, 13) log
         rows in TRAIN_COLUMNS order, on the device."""
-        comps, grads = self.grads(step_idx, generators=generators,
-                                  batch_idx=batch_idx, noise=noise)
+        self.step_t.fill_(step_idx)
+        return self.step_body(generators, batch_idx, noise)
+
+    def step_body(self, generators=None, batch_idx=None,
+                  noise=None) -> torch.Tensor:
+        """``step`` at the index in ``step_t``."""
+        sched = self._schedule_rows()
+        comps, grads = self._grads(sched, generators, batch_idx, noise)
         self.optimizer.step(grads)
         sigma_x = torch.exp(self.params["log_sigma_x"]).reshape(-1, 1)
-        return torch.cat([comps, self.schedule[:, step_idx], sigma_x], dim=1)
+        return torch.cat([comps, sched, sigma_x], dim=1)
 
     def validate(self, step_idx: int, *, generators=None,
                  noise=None) -> torch.Tensor:
         """The (M, 8) validation components in VAL_COLUMNS order."""
+        self.step_t.fill_(step_idx)
+        return self.validate_body(generators, noise)
+
+    def validate_body(self, generators=None, noise=None) -> torch.Tensor:
+        """``validate`` at the index in ``step_t``."""
         cfg = self.config
         eps = torch.as_tensor(
             self._draw_noise(generators, cfg.n_mc_val, cfg.n_val)
@@ -648,14 +757,15 @@ class MemberTrainer:
         with torch.no_grad():
             comps = self._value_fn(
                 self.params, *self.data_val, eps, self.scalers,
-                self.schedule[:, step_idx], self.alphas)
+                self._schedule_rows(), self.alphas)
         if self.shard is not None:
             all_reduce_sum_([comps], self.shard.group)
         return comps
 
 
 def build_member_train_fn(config: TrainConfig, case: Case,
-                          mesh: Optional[Mesh] = None, dp_axis: str = "dp"):
+                          mesh: Optional[Mesh] = None, dp_axis: str = "dp",
+                          cuda_graph="auto"):
     """Returns ``train_fn(params, generators, data_train, data_val,
     lambdas, hyper=None) -> (params, TrainLogs)`` for M members at once:
     ``build_train_fn``'s loop over a ``MemberTrainer``, with logs of shape
@@ -671,8 +781,11 @@ def build_member_train_fn(config: TrainConfig, case: Case,
     are NaN and inactive. The (M,) validation losses are read once per
     block, and the loop ends early only when every member has stopped.
     With ``mesh``, each member's steps are data-parallel over ``dp_axis``
-    (``MemberTrainer``).
+    (``MemberTrainer``). ``cuda_graph`` as in ``build_train_fn``: the
+    graphs draw from the M ``generators``, which must then be CUDA ones.
     """
+    if mesh is not None:
+        resolve_cuda_graph(cuda_graph, None, mesh)
     config = member_config(config)
     _data_shard(config, mesh, dp_axis)
     n_iter, vf = config.n_iter, config.val_freq
@@ -685,33 +798,45 @@ def build_member_train_fn(config: TrainConfig, case: Case,
         m, device = run.n_members, run.device
         if len(generators) != m:
             raise ValueError(f"{len(generators)} generators for {m} members")
+        graphed = resolve_cuda_graph(cuda_graph, device, mesh)
         nan = lambda *shape: torch.full(shape, float("nan"), device=device)
         train = nan(m, n_iter, len(TRAIN_COLUMNS))
         val = nan(m, n_blocks, len(VAL_COLUMNS))
         es = [early_stop_init() for _ in range(m)]
         stop_iter = np.full(m, n_iter)
         live_blocks = np.full(m, n_blocks)
-        for block in range(n_blocks):
-            entry_stopped = np.array([s.stopped for s in es])
-            if entry_stopped.all():
-                break
-            entry = run.optimizer.state() if entry_stopped.any() else None
-            start = block * vf
-            train[:, start] = run.step(start, generators=generators)
-            val[:, block] = run.validate(start, generators=generators)
-            losses = val[:, block, 0].cpu().numpy()
-            es = [early_stop_update(s, v, config.patience, config.min_delta)
-                  for s, v in zip(es, losses)]
-            stopped_here = np.array([s.stopped for s in es]) & ~entry_stopped
-            mid = run.optimizer.state() if stopped_here.any() else None
-            for i in range(start + 1, min(start + vf, n_iter)):
-                train[:, i] = run.step(i, generators=generators)
-            if mid is not None:
-                run.optimizer.restore(torch.from_numpy(stopped_here), mid)
-                stop_iter[stopped_here] = start + 1
-                live_blocks[stopped_here] = block + 1
-            if entry is not None:
-                run.optimizer.restore(torch.from_numpy(entry_stopped), entry)
+        step = lambda i: run.step(i, generators=generators)
+        validate = lambda i: run.validate(i, generators=generators)
+        with _loop_stream(graphed, device) as stream:
+            for block in range(n_blocks):
+                entry_stopped = np.array([s.stopped for s in es])
+                if entry_stopped.all():
+                    break
+                if graphed and block == 1:
+                    step, validate = _graphed_calls(
+                        run, generators, stream,
+                        lambda: run.step_body(generators),
+                        lambda: run.validate_body(generators))
+                entry = run.optimizer.state() if entry_stopped.any() else None
+                start = block * vf
+                train[:, start] = step(start)
+                val[:, block] = validate(start)
+                losses = val[:, block, 0].cpu().numpy()
+                es = [early_stop_update(s, v, config.patience,
+                                        config.min_delta)
+                      for s, v in zip(es, losses)]
+                stopped_here = (np.array([s.stopped for s in es])
+                                & ~entry_stopped)
+                mid = run.optimizer.state() if stopped_here.any() else None
+                for i in range(start + 1, min(start + vf, n_iter)):
+                    train[:, i] = step(i)
+                if mid is not None:
+                    run.optimizer.restore(torch.from_numpy(stopped_here), mid)
+                    stop_iter[stopped_here] = start + 1
+                    live_blocks[stopped_here] = block + 1
+                if entry is not None:
+                    run.optimizer.restore(torch.from_numpy(entry_stopped),
+                                          entry)
         steps = torch.arange(n_iter, device=device)
         blocks = torch.arange(n_blocks, device=device)
         train_active = steps[None] < torch.as_tensor(stop_iter,

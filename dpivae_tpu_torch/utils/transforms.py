@@ -119,9 +119,16 @@ class MaskedChain:
     def __init__(self, mask: Sequence[int], *transforms):
         self.mask = tuple(int(i) for i in mask)
         self.chain = Chain(*transforms)
+        self._copies = {}
 
     def _apply(self, z, fn):
-        idx = torch.tensor(self.mask, device=z.device)
+        # The index on z's device, copied there once: a copy from host
+        # memory in every call would wait for the device, and a CUDA
+        # graph cannot capture it.
+        from dpivae_tpu_torch.cases import device_constants
+
+        (idx,) = device_constants(self._copies, (self.mask,), z,
+                                  dtype=torch.long)
         z_masked, log_det = fn(z.index_select(-1, idx))
         return z.index_copy(-1, idx, z_masked), log_det
 

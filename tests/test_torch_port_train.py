@@ -272,11 +272,16 @@ def test_global_norm_clip_matches_optax(max_norm):
     dict(),
     dict(clip_gradients=True, max_grad_norm=0.05, wd_e=0.01, wd_dx=0.02,
          wd_sigma=0.1, lr_dx=3e-3),
-], ids=["plain", "clip-wd"])
+    dict(n_iter=6, lambda_annealing="sigmoid", lambda_mu=0.3,
+         lambda_cov=0.2, beta_x_annealing="cyclical", beta_x_n_cycles=2,
+         beta_x_R=0.4),
+], ids=["plain", "clip-wd", "annealed"])
 def test_train_steps_match_jax(over):
     """Three train steps through the seam (given batch rows and encoder
     noise) against JAX's optimizer update on jax.grad of the same
-    normalised loss, from the same state."""
+    normalised loss, from the same state. The loss weights are each
+    step's schedule row, as the JAX loop forms it; in the annealed case
+    the GRL strength and beta_x change at every step."""
     data, (jcfg, jmodel, jparams), (cfg, case, _, params) = _models(
         use_pallas=True, **over)
     run = Trainer(cfg, case, params, data, _data(N_TRAIN, 9), cfg.lambda_g0)
@@ -284,13 +289,20 @@ def test_train_steps_match_jax(over):
     opt_state = tx.init(jparams)
     denom = B * (case.nd_x + case.nd_y + case.nd_c)
     rng = np.random.default_rng(4)
+    scales = dict(lambda_=jcfg.lambda_g0, beta_x=jcfg.beta_x0,
+                  beta_c=jcfg.beta_c0, beta_y=jcfg.beta_y0)
+    scheds = {name: jax_annealing.make_schedule(
+        jcfg.annealing(name.rstrip("_")), jcfg.n_iter) for name in scales}
     for step in range(3):
         idx = rng.choice(N_TRAIN, B, replace=False)
         key = jax.random.PRNGKey(100 + step)
         x, c, y = (jnp.asarray(a[idx]) for a in data)
+        w = {name: scales[name] * scheds[name](step) for name in scales}
 
         def scalar(p):
-            out = jmodel.loss(p, key, x, c, y, n=N, grl_alpha=jcfg.lambda_g0)
+            out = jmodel.loss(p, key, x, c, y, n=N, grl_alpha=w["lambda_"],
+                              beta_x=w["beta_x"], beta_c=w["beta_c"],
+                              beta_y=w["beta_y"])
             return jnp.sum(out[0]) / denom
 
         value, grads = jax.value_and_grad(scalar)(jparams)
@@ -300,6 +312,7 @@ def test_train_steps_match_jax(over):
                        noise={"z": _t(_replayed_eps(key, N, B))})
         assert row.shape == (len(TRAIN_COLUMNS),)
         _close(row[0], value, LOSS_TOL, LOSS_TOL)
+        _close(row[8:12], [w[name] for name in scales], 1e-6, 1e-7)
     want = state_dict_from_jax(jax.tree.map(np.asarray, jparams))
     for name, p in params.state_dict().items():
         _close(p, want[name], PARAM_TOL, PARAM_TOL, name)
