@@ -40,7 +40,10 @@ Phases; any failure exits non-zero before the result line:
    kernel's launch count over that run must equal the number of requests,
    the outputs must be finite and of the right shapes, and they must agree
    with a use_pallas=False model of the same weights under the same seeds.
-   Each model's per-request time is taken in alternating turns.
+   Each model's per-request time is taken in alternating turns. The
+   Predictors replay CUDA graphs (``cuda_graph="auto"``,
+   ``utils/graph_cache.py``) from their first request on; the memory the
+   graph cache holds is printed after the requests.
 5. Serving profile: torch.profiler's device view of one request (busy
    share, top kernels), the forward kernel's device time per launch at the
    serving, training and 65,536 x (4 -> 256 -> 32) shapes, and the hidden
@@ -218,7 +221,24 @@ Phases; any failure exits non-zero before the result line:
    frozen between replays); phase 12's 24-member bridge / "DPIVAE-A" grid
    (P model, use_pallas=True, 100 steps); and the 66 members with
    remat_decode (200 steps).
-17. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
+17. The graphed inference path (``utils/graph_cache.py``; every inference
+   above already ran through it, "auto" on CUDA) against the eager calls
+   (``cuda_graph=False``) from the same seeds and weights, max_abs_err
+   expected 0 and the forward's launches counted in both: phase 4's
+   simple_beam Predictor with the kernel and plain, and phase 7's bridge
+   and damped_oscillator Predictors, 3 requests of 512 x 512 MC and all
+   eight outputs each (one launch a request with the kernel); requests of
+   512, 7, 512 and 7 points in turns (two graphs on one memory pool);
+   phase 11's artifact at 1, 7, 512 and 7 points; per-request medians and
+   quartiles of the graphed and eager kernel Predictor and artifact
+   (alternating turns), torch.profiler's view of one replayed and one
+   eager request and one replayed artifact request, and cProfile's host
+   view of 20 replayed requests; the bytes and graphs
+   the cache holds; ``evaluate_model``'s y and ``sample_latents`` at 512 x
+   512 MC and the caller's generator after them (its next draw equal);
+   one prediction figure's data and ``marginal_prior_data`` of phase 8's
+   model at 2,000 x 5, equal, and the wall of each, graphed and eager.
+18. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -675,6 +695,10 @@ def _serving(ops, failures, case_name, preset):
         failures.append(f"{what}: expected {N_REQUESTS} forward and no "
                         f"hidden kernel launches on the serving path, "
                         f"counted {launches} and {hidden_launches}")
+    from dpivae_tpu_torch.utils import graph_cache
+
+    print(f"graph cache after {what}'s requests: {graph_cache.entries()} "
+          f"graphs, {graph_cache.held_bytes() / 1e6:.1f} MB held")
     widths = dict(x_sample=case.nd_x, xh_p=case.nd_x, xh_d=case.nd_x,
                   c_sample=case.nd_c, y=case.nd_y, zx=case.nz_x,
                   zc=cfg.nz_c, zy=cfg.nz_y)
@@ -3080,6 +3104,217 @@ def _graphs(ops, failures, card, setup, grid):
     return tuple(a + b for a, b in zip(single, members))
 
 
+# ----------------------------------------------------------------------
+# Phase 17: the graphed inference path against the eager one
+# ----------------------------------------------------------------------
+
+def _as_tensors(out):
+    """Outputs (numpy arrays or tensors, in dicts or lists) as tensors,
+    for ``_max_diff``."""
+    if isinstance(out, dict):
+        return {k: _as_tensors(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return [_as_tensors(o) for o in out]
+    return torch.as_tensor(out)
+
+
+def _host_profile(what, call, n=N_TIMED_REQUESTS, top=8):
+    """cProfile's view of ``n`` calls ``call(i)``: the functions with the
+    most time of their own, per call (the first wait for the device shows
+    as the copy to the host that waits)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for i in range(n):
+        call(i)
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])
+    total = sum(v[2] for _, v in rows)
+    print(f"host profile of {what} (cProfile, {n} calls): "
+          f"{1e3 * total / n:.3f} ms a call under the profiler; own time "
+          f"per call, largest first:")
+    for (path, line, name), (_, calls, own, _, _) in rows[:top]:
+        print(f"  {1e3 * own / n:8.4f} ms  x{calls // n:<3d} "
+              f"{os.path.basename(path)}:{line} {name}"[:110])
+
+
+def _infer_pair(ops, what, run, failures, want_launches):
+    """``run(cuda_graph)`` graphed ("auto") and eager (False) from the
+    same seeds, each with the forward's count from 0; prints and checks
+    their max_abs_err (expected 0) and that each launched the forward
+    ``want_launches`` times. Returns the graphed run's launches."""
+    counted = []
+    for cuda_graph in ("auto", False):
+        ops.fused_mlp.launches = 0
+        counted.append((run(cuda_graph), ops.fused_mlp.launches))
+    (got, n_graph), (want, n_eager) = counted
+    worst = _max_diff(_as_tensors(got), _as_tensors(want))
+    print(f"graph vs eager inference, {what}: max_abs_err {worst:.3e} "
+          f"(expected 0); fused_mlp_fwd launches {n_graph} graphed, "
+          f"{n_eager} eager (expected {want_launches})")
+    if worst != 0 or n_graph != want_launches or n_eager != want_launches:
+        failures.append(f"graph vs eager inference ({what}): max_abs_err "
+                        f"{worst:.3e}, launches {n_graph} and {n_eager}")
+    return n_graph
+
+
+def _graph_requests(ops, failures, card, setups, served):
+    """Phase 17 (a): the Predictors of phases 4 and 7 and phase 11's
+    artifact, graphed against eager: values, launches, two shapes in
+    turns, per-request times and one profiled request of each. Returns
+    the forward launches of the graphed kernel Predictors' requests."""
+    from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor
+
+    outputs = tuple(SAMPLE_SLOTS)
+    launches = 0
+    for name, (cfg, case, model, params, request) in setups.items():
+        x, c = request
+        models = {"kernel": model}
+        if name == "simple_beam":
+            models["plain"] = dataclasses.replace(model, use_pallas=False)
+        for kind, m in models.items():
+            def run(cuda_graph, m=m):
+                p = Predictor(m, params, cfg, outputs=outputs,
+                              device="cuda", cuda_graph=cuda_graph)
+                return [p(x, c, seed=s) for s in range(N_REQUESTS)]
+
+            launches += _infer_pair(
+                ops, f"{name} Predictor ({kind}), {N_REQUESTS} requests of "
+                f"{cfg.n_test} x {cfg.n_mc_test} MC, 8 outputs", run,
+                failures, N_REQUESTS if m.use_pallas else 0)
+
+    cfg, case, model, params, (x, c) = setups["simple_beam"]
+    sizes = (cfg.n_test, 7, cfg.n_test, 7)
+
+    def interleaved(cuda_graph):
+        p = Predictor(model, params, cfg, outputs=outputs, device="cuda",
+                      cuda_graph=cuda_graph)
+        return [p(x[:b], c[:b], seed=i) for i, b in enumerate(sizes)]
+
+    launches += _infer_pair(
+        ops, f"simple_beam requests of {sizes} points in turns (two graphs "
+        f"on one pool)", interleaved, failures, len(sizes))
+    graphed = Predictor(model, params, cfg, outputs=outputs, device="cuda")
+    eager = Predictor(model, params, cfg, outputs=outputs, device="cuda",
+                      cuda_graph=False)
+    times = _per_request_times({"graphed": graphed, "eager": eager}, x, c)
+    med = {}
+    for kind, t in times.items():
+        q1, med[kind], q3 = statistics.quantiles(t, n=4)
+        print(f"per request {cfg.n_test} x {cfg.n_mc_test} MC ({card}), "
+              f"{kind} kernel Predictor: median {med[kind]:.3f} ms, "
+              f"quartiles {q1:.3f}-{q3:.3f} ms over {N_TIMED_REQUESTS} "
+              f"requests (alternating turns)")
+    print(f"graphed request: {med['eager'] / med['graphed']:.2f}x the eager "
+          f"one")
+    _profile_request("one replayed request", graphed, (x, c),
+                     med["graphed"])
+    _host_profile("replayed requests", lambda i: graphed(x, c, seed=i))
+    _profile_request("one eager request", eager, (x, c), med["eager"])
+
+    from dpivae_tpu_torch.utils import graph_cache
+
+    eager_served = dataclasses.replace(served, cuda_graph=False)
+
+    def artifact(cuda_graph):
+        p = served if cuda_graph == "auto" else eager_served
+        return [p(x[:b], c[:b], seed=b) for b in (1, 7, cfg.n_test, 7)]
+
+    _infer_pair(ops, f"artifact at 1, 7, {cfg.n_test} and 7 points x "
+                f"{cfg.n_mc_test} MC, 8 outputs", artifact, failures, 0)
+    times = _per_request_times({"graphed": served, "eager": eager_served},
+                               x, c)
+    for kind, t in times.items():
+        q1, med[kind], q3 = statistics.quantiles(t, n=4)
+        print(f"per request {cfg.n_test} x {cfg.n_mc_test} MC ({card}), "
+              f"{kind} artifact: median {med[kind]:.3f} ms, quartiles "
+              f"{q1:.3f}-{q3:.3f} ms over {N_TIMED_REQUESTS} requests "
+              f"(alternating turns)")
+    _profile_request("one replayed artifact request", served, (x, c),
+                     med["graphed"])
+    print(f"graph cache after phase 17's requests: {graph_cache.entries()} "
+          f"graphs, {graph_cache.held_bytes() / 1e6:.1f} MB held (their "
+          f"pool's segments and static inputs); "
+          f"{torch.cuda.memory_reserved() / 1e6:.1f} MB reserved in all")
+    return launches
+
+
+def _graph_eval_figures(ops, failures, card, setup, run):
+    """Phase 17 (b): ``evaluate_model`` and ``sample_latents`` graphed
+    against eager, the caller's generator after them, and one prediction
+    figure's data and ``marginal_prior_data`` at the config's 2,000 x 5.
+    Returns the forward launches of the graphed prediction figure."""
+    from dpivae_tpu_torch.eval import evaluate_model, sample_latents
+    from dpivae_tpu_torch.utils.data import sample_response
+    from dpivae_tpu_torch.viz import visualization as viz
+
+    cfg, case, model, params, _ = setup
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    data = sample_response(case, gen, cfg.n_test, sample_dist=case.gt_dist(),
+                           device="cuda")
+    after = {}
+
+    def evaluate(cuda_graph):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        out = [evaluate_model(cfg, case, model, params, data, generator=g,
+                              cuda_graph=cuda_graph)[1][cfg.name],
+               *sample_latents(cfg, model, params, data[0], data[1],
+                               n=cfg.n_mc_test, generator=g,
+                               cuda_graph=cuda_graph)]
+        after[cuda_graph] = torch.randn(64, generator=g, device="cuda")
+        return [torch.as_tensor(o) for o in out]
+
+    _infer_pair(ops, f"evaluate_model's y and sample_latents' (zx, zc, zy) "
+                f"at {cfg.n_test} points x {cfg.n_mc_test} MC", evaluate,
+                failures, 0)
+    same = torch.equal(after["auto"], after[False])
+    print(f"the caller's generator after the graphed calls draws what it "
+          f"draws after the eager ones: {same}")
+    if not same:
+        failures.append("graphed evaluate: the caller's generator differs")
+
+    cfg, case, model, params = (run.config, run.case, run.model, run.params)
+    figures = {
+        "fig_pred_x_0": (cfg.n_interp, lambda cuda_graph: list(
+            viz.pred_decomposition(
+                model, params, cfg, case, 0, cfg.n_interp, cfg.n_plot, False,
+                cfg.seed + 5, device="cuda",
+                cuda_graph=cuda_graph)[0].values())),
+        "marginal_prior_data 0": (0, lambda cuda_graph: list(
+            viz.marginal_prior_data(
+                model, params, cfg, case, 0, cfg.n_interp, cfg.n_plot,
+                cfg.seed + 5, device="cuda", cuda_graph=cuda_graph)[0])),
+    }
+    launches = 0
+    for name, (want, fn) in figures.items():
+        launches += _infer_pair(ops, f"{name} data at n_plot {cfg.n_plot} x "
+                                f"n_interp {cfg.n_interp}", fn, failures,
+                                want)
+        walls = {"auto": [], False: []}
+        for turn in range(4):
+            for cuda_graph in (("auto", False) if turn % 2 else
+                               (False, "auto")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(cuda_graph)
+                torch.cuda.synchronize()
+                walls[cuda_graph].append(1e3 * (time.perf_counter() - t0))
+        print(f"figure data {name} ({card}), median of 4 warm runs in "
+              f"turns: graphed {statistics.median(walls['auto']):.1f} ms, "
+              f"eager {statistics.median(walls[False]):.1f} ms")
+    return launches
+
+
+def _graph_inference(ops, failures, card, setups, served, run):
+    """Phase 17. Returns the forward launches of its graphed calls."""
+    return (_graph_requests(ops, failures, card, setups, served)
+            + _graph_eval_figures(ops, failures, card,
+                                  setups["simple_beam"], run))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3134,8 +3369,8 @@ def main() -> int:
     # This slice's paths (8 -> 128 -> 64): bridge / "DPIVAE-A" (P model,
     # surrogate partial physics, a physical covariate) serving and
     # training, and damped_oscillator / "dpivae" (S model) serving.
-    b_launches, b_req_ms, b_plain_ms, b_predictor, b_request, _ = _serving(
-        ops, failures, "bridge", "DPIVAE-A")
+    (b_launches, b_req_ms, b_plain_ms, b_predictor, b_request,
+     b_setup) = _serving(ops, failures, "bridge", "DPIVAE-A")
     print(f"per request bridge / 'DPIVAE-A' ({card}): kernel model "
           f"{b_req_ms:.3f} ms, plain model {b_plain_ms:.3f} ms")
     _profile_request("one bridge / 'DPIVAE-A' request", b_predictor,
@@ -3145,7 +3380,7 @@ def main() -> int:
     print(f"training steps/s bridge / 'DPIVAE-A' ({card}): kernel model "
           f"{b_steps_s['kernel']:.1f}, plain model {b_steps_s['plain']:.1f} "
           f"(n_iter {N_ITER_BRIDGE})")
-    o_launches, o_req_ms, o_plain_ms, _, _, _ = _serving(
+    o_launches, o_req_ms, o_plain_ms, _, o_request, o_setup = _serving(
         ops, failures, "damped_oscillator", "dpivae")
     print(f"per request damped_oscillator / 'dpivae' ({card}): kernel "
           f"model {o_req_ms:.3f} ms, plain model {o_plain_ms:.3f} ms")
@@ -3185,12 +3420,18 @@ def main() -> int:
     # and the three example programs.
     e_fwd, e_hidden = _phase15(ops, failures, card, served, request)
 
-    # This slice's path: the graphed training loop against the eager one.
+    # The graphed training loop against the eager one.
     g_fwd, g_hidden = _graphs(ops, failures, card, setup, grid)
+
+    # This slice's path: the graphed inference calls against eager ones.
+    setups = {"simple_beam": (*serve_setup, request),
+              "bridge": (*b_setup, b_request),
+              "damped_oscillator": (*o_setup, o_request)}
+    i_fwd = _graph_inference(ops, failures, card, setups, served, run)
 
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
                  + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd
-                 + f_fwd + m_fwd + e_fwd + g_fwd)
+                 + f_fwd + m_fwd + e_fwd + g_fwd + i_fwd)
     hidden_total = (hidden_launches + b_hidden + s_hidden + d_hidden
                     + w_hidden + y_hidden + t_hidden + m_hidden + e_hidden
                     + g_hidden)
@@ -3201,8 +3442,8 @@ def main() -> int:
           f"sweep {w_fwd} (member-batched), study {y_fwd}, artifact phase "
           f"{a_fwd} (the live kernel Predictor), transfer {t_fwd} "
           f"(member-batched), figures {f_fwd}, mesh {m_fwd}, remat sweeps, "
-          f"CNN model and examples {e_fwd}, graphed loop {g_fwd} = "
-          f"{fwd_total}; "
+          f"CNN model and examples {e_fwd}, graphed loop {g_fwd}, graphed "
+          f"inference {i_fwd} = {fwd_total}; "
           f"fused_mlp_hidden simple_beam "
           f"training {hidden_launches} + bridge training {b_hidden} + single "
           f"run {s_hidden} + remat and bf16 {d_hidden} + sweep {w_hidden} + "

@@ -1,7 +1,10 @@
 """Evaluation paths (counterpart of dpivae_tpu/eval/evaluate.py).
 
 The VAE's predictions and latents are MC means computed on the device by
-``serving.sample_mean``, which runs only what the requested outputs need.
+``serving.sample_mean``, which runs only what the requested outputs need,
+on CUDA as a CUDA graph cached by call signature (``cuda_graph="auto"``,
+``utils/graph_cache.py``), as the JAX package runs them through its jit
+cache (dpivae_tpu/eval/evaluate.py:58, :133).
 The JAX package fits its comparison baselines and disentanglement probes
 with scikit-learn on the host; here both run on the batched torch fits of
 ``eval/baselines.py`` and ``eval/probes.py`` with one member, on the device
@@ -84,15 +87,17 @@ def evaluate_model(
     cond: bool = False,
     generator: Optional[torch.Generator] = None,
     noise: Noise = None,
+    cuda_graph="auto",
 ) -> Tuple[Dict[str, dict], Dict[str, np.ndarray]]:
     """Test-set regression metrics of the posterior-mean y over
     ``config.n_mc_test`` samples, keyed by ``config.name``. Runs no
-    decoder_x (``sample_mean`` of "y" alone)."""
+    decoder_x (``sample_mean`` of "y" alone, with ``cuda_graph``)."""
     x, c, generator = _inputs(params, data_test[0], data_test[1], generator,
                               noise)
     (y_mean,) = sample_mean(model, params, x, c, outputs=("y",), cond=cond,
                             n=config.n_mc_test, grl_alpha=config.lambda_g0,
-                            generator=generator, noise=noise)
+                            generator=generator, noise=noise,
+                            cuda_graph=cuda_graph)
     y_pred = y_mean.cpu().numpy()
     metrics = regression_metrics(data_test[2], y_pred)
     return {config.name: metrics}, {config.name: y_pred}
@@ -137,13 +142,15 @@ def sample_latents(
     n: int = 1,
     generator: Optional[torch.Generator] = None,
     noise: Noise = None,
+    cuda_graph="auto",
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Posterior latents (z_x, z_c, z_y), MC means over ``n`` samples, as
-    host numpy. Runs no decoder."""
+    host numpy. Runs no decoder (``sample_mean``, with ``cuda_graph``)."""
     x, c, generator = _inputs(params, x, c, generator, noise)
     zx, zc, zy = sample_mean(model, params, x, c, outputs=BLOCKS, cond=cond,
                              n=n, grl_alpha=config.lambda_g0,
-                             generator=generator, noise=noise)
+                             generator=generator, noise=noise,
+                             cuda_graph=cuda_graph)
     return zx.cpu().numpy(), zc.cpu().numpy(), zy.cpu().numpy()
 
 

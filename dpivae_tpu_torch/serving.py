@@ -27,6 +27,15 @@ code, case or checkpoint:
   (``DPIVAE.noise_draws``, recorded as the sidecar's ``draws``, and drawn
   by ``draw_normals`` as ``DPIVAE.sample`` draws them), so an artifact
   answers as the live plain ``Predictor`` does under the same seed.
+
+On a CUDA device every call replays a CUDA graph captured once per call
+signature (``utils/graph_cache.py``, the counterpart of the JAX package's
+jitted predict path): ``sample_mean`` and what is built on it, and the
+loaded artifact, one graph per request shape. ``cuda_graph`` ("auto", the
+default, True or False, as ``train.graph.resolve_cuda_graph`` reads it)
+chooses: "auto" replays graphs on CUDA and runs eagerly on the CPU, True
+raises on the CPU, False runs eagerly. Graphs give the eager answers bit
+for bit under the same seeds.
 """
 
 from __future__ import annotations
@@ -42,7 +51,12 @@ import numpy as np
 import torch
 
 from dpivae_tpu_torch.models.vae import OBSERVATION_NOISE
+from dpivae_tpu_torch.train.graph import resolve_cuda_graph
 from dpivae_tpu_torch.utils import DeviceLike, draw_normals, resolve_device
+from dpivae_tpu_torch.utils.graph_cache import (
+    cached_program,
+    cached_sample_mean,
+)
 
 _FORMAT = "dpivae_tpu_torch.serving/1"
 
@@ -68,12 +82,24 @@ def _slots(outputs: Sequence[str]):
     return tuple(SAMPLE_SLOTS[o] for o in outputs)
 
 
+def _to_host(names, out) -> Dict[str, np.ndarray]:
+    """Named outputs as numpy arrays, read back in one copy: one wait for
+    the device instead of one per output."""
+    flat = torch.cat([v.reshape(-1) for v in out]).cpu().numpy()
+    ends = np.cumsum([v.numel() for v in out])[:-1]
+    return {name: part.reshape(v.shape) for name, part, v in
+            zip(names, np.split(flat, ends), out)}
+
+
 def sample_mean(model, params, x, c, *, outputs: Sequence[str] = ("y",),
                 cond: bool = False, n: int = 1, grl_alpha=None,
-                generator=None, noise=None):
+                generator=None, noise=None, cuda_graph="auto"):
     """MC means over ``n`` posterior samples of the named ``model.sample``
     outputs, under ``torch.inference_mode()`` (counterpart of
-    dpivae_tpu/utils/jit_cache.py:89-116).
+    dpivae_tpu/utils/jit_cache.py:89-116). On CUDA ("auto") through the
+    graph cache's ``cached_sample_mean``, which copies ``generator``'s
+    state in and the advanced state back, so that the generator ends
+    where the eager call leaves it.
 
     Only what the named outputs need is computed: XLA drops what the JAX
     package's program does not return, and eager PyTorch drops nothing by
@@ -83,6 +109,10 @@ def sample_mean(model, params, x, c, *, outputs: Sequence[str] = ("y",),
     mean bit for bit.
     """
     slots = _slots(outputs)
+    if resolve_cuda_graph(cuda_graph, x.device):
+        return cached_sample_mean(model, params, x, c, cond=cond, n=n,
+                                  grl_alpha=grl_alpha, outputs=slots,
+                                  generator=generator, noise=noise)
     with torch.inference_mode():
         out = model.sample(params, x, c, cond=cond, n=n, grl_alpha=grl_alpha,
                            generator=generator, noise=noise, slots=slots)
@@ -91,14 +121,14 @@ def sample_mean(model, params, x, c, *, outputs: Sequence[str] = ("y",),
 
 def build_predict_fn(model, params, config, *, cond: bool = False,
                      n: Optional[int] = None,
-                     outputs: Sequence[str] = ("y",)):
+                     outputs: Sequence[str] = ("y",), cuda_graph="auto"):
     """A ``predict(x, c, *, generator=None, noise=None) -> tuple`` function.
 
     Each output is the MC mean over ``n`` posterior samples (default
     ``config.n_mc_test``) of the named ``model.sample`` slot
-    (``sample_mean``), on the device of ``x``, ``c`` and the params.
-    ``generator`` or ``noise`` supply the randomness, as in
-    ``DPIVAE.sample``.
+    (``sample_mean``, with ``cuda_graph``), on the device of ``x``, ``c``
+    and the params. ``generator`` or ``noise`` supply the randomness, as
+    in ``DPIVAE.sample``.
     """
     _slots(outputs)
     if n is None:
@@ -107,23 +137,28 @@ def build_predict_fn(model, params, config, *, cond: bool = False,
     def predict(x, c, *, generator=None, noise=None):
         return sample_mean(model, params, x, c, outputs=outputs, cond=cond,
                            n=n, grl_alpha=config.lambda_g0,
-                           generator=generator, noise=noise)
+                           generator=generator, noise=noise,
+                           cuda_graph=cuda_graph)
 
     return predict
 
 
 class Predictor:
     """Answers ``(x, c)`` requests with MC-posterior means on ``device``
-    (None means CUDA); the model and params must live there."""
+    (None means CUDA); the model and params must live there. With
+    ``cuda_graph`` "auto" (on CUDA) or True each request replays the
+    graph of its shape, captured at its first request; True raises on
+    the CPU."""
 
     def __init__(self, model, params, config, *, cond: bool = False,
                  n: Optional[int] = None, outputs: Sequence[str] = ("y",),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, cuda_graph="auto"):
         self.device = resolve_device(device)
         self.outputs = tuple(outputs)
+        resolve_cuda_graph(cuda_graph, self.device)
         self._predict = build_predict_fn(
-            model, params, config, cond=cond, n=n, outputs=self.outputs
-        )
+            model, params, config, cond=cond, n=n, outputs=self.outputs,
+            cuda_graph=cuda_graph)
 
     def __call__(self, x, c, *, seed: int = 0) -> Dict[str, np.ndarray]:
         """Predict for a batch; returns a dict of named numpy outputs."""
@@ -131,7 +166,7 @@ class Predictor:
         c = torch.as_tensor(c, dtype=torch.float32, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         out = self._predict(x, c, generator=generator)
-        return {name: v.cpu().numpy() for name, v in zip(self.outputs, out)}
+        return _to_host(self.outputs, out)
 
 
 # ----------------------------------------------------------------------
@@ -272,11 +307,17 @@ def save_predictor(path: str, model, params, config, case=None, *,
 @dataclasses.dataclass(frozen=True)
 class ServedPredictor:
     """A loaded artifact on ``device``: what ``torch.export.load``
-    returned (moved there) and its sidecar, nothing else."""
+    returned (moved there) and its sidecar, nothing else. ``cuda_graph``
+    as on ``Predictor``: "auto" replays one graph per request shape on
+    CUDA (the cache's ``cached_program``); True raises on the CPU."""
 
     program: object
     meta: dict
     device: torch.device
+    cuda_graph: object = "auto"
+
+    def __post_init__(self):
+        resolve_cuda_graph(self.cuda_graph, self.device)
 
     @property
     def outputs(self) -> Tuple[str, ...]:
@@ -297,23 +338,32 @@ class ServedPredictor:
         it, replaces the draws from ``seed``."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         c = torch.as_tensor(c, dtype=torch.float32, device=self.device)
+        names = [i["name"] for i in self.meta["inputs"][2:]]
+        generator = None
         if noise is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-            # The sidecar's ``draws`` are the model's ``noise_draws``
-            noise = draw_normals(self.meta["draws"], generator,
-                                 (self.meta["n_mc"], x.shape[0]),
-                                 self.device)
-        inputs = [torch.as_tensor(noise[i["name"]], dtype=torch.float32,
-                                  device=self.device)
-                  for i in self.meta["inputs"][2:]]
-        with torch.inference_mode():
-            out = self._module(x, c, *inputs)
-        return {name: v.cpu().numpy() for name, v in zip(self.outputs, out)}
+        else:
+            noise = {k: torch.as_tensor(noise[k], dtype=torch.float32,
+                                        device=self.device) for k in names}
+        if resolve_cuda_graph(self.cuda_graph, self.device):
+            out = cached_program(self._module, self.meta, x, c,
+                                 generator=generator, noise=noise)
+        else:
+            if noise is None:
+                # The sidecar's ``draws`` are the model's ``noise_draws``
+                noise = draw_normals(self.meta["draws"], generator,
+                                     (self.meta["n_mc"], x.shape[0]),
+                                     self.device)
+            with torch.inference_mode():
+                out = self._module(x, c, *(noise[k] for k in names))
+        return _to_host(self.outputs, out)
 
 
-def load_predictor(path: str, device: DeviceLike = None) -> ServedPredictor:
+def load_predictor(path: str, device: DeviceLike = None,
+                   cuda_graph="auto") -> ServedPredictor:
     """Load a ``save_predictor`` artifact for serving on ``device`` (None
-    means CUDA; raises without a card unless asked for the CPU)."""
+    means CUDA; raises without a card unless asked for the CPU), with
+    ``cuda_graph`` as ``ServedPredictor`` takes it."""
     from torch.export.passes import move_to_device_pass
 
     device = resolve_device(device)
@@ -330,4 +380,5 @@ def load_predictor(path: str, device: DeviceLike = None) -> ServedPredictor:
     program = torch.export.load(path)
     if device.type != meta["exported_on"]:
         program = move_to_device_pass(program, str(device))
-    return ServedPredictor(program=program, meta=meta, device=device)
+    return ServedPredictor(program=program, meta=meta, device=device,
+                           cuda_graph=cuda_graph)

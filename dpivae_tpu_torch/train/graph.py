@@ -1,13 +1,15 @@
-"""CUDA-graph capture and replay of a training body (counterpart of the JAX
-package's compiled loop, dpivae_tpu/train/train.py:398-500: the inner scan
-over a block's steps and the outer scan over validation blocks, jitted
-once and cached by ``get_train_fn``).
+"""CUDA-graph capture and replay of a training or an inference body
+(counterpart of the JAX package's compiled loop,
+dpivae_tpu/train/train.py:398-500: the inner scan over a block's steps and
+the outer scan over validation blocks, jitted once and cached by
+``get_train_fn``; and of its jitted sampling, which
+``utils/graph_cache.py`` captures with this class).
 
 The card's counterpart of one XLA program is a CUDA graph: a body's
 launches (forward, backward, clip and Adam of a train step, or the whole
 validation pass) recorded once and replayed with one launch. ``Graphed``
-captures a body on a side stream, on its own memory pool, after
-registering every CUDA ``torch.Generator`` the body draws from, so that
+captures a body on a side stream, on its own memory pool or on one
+that several graphs share (``pool=``), after registering every CUDA ``torch.Generator`` the body draws from, so that
 each replay advances each generator as the eager body would (the default
 generator alone is registered by ``torch.cuda.graph`` itself). Replays
 then draw the same numbers an eager run would.
@@ -23,8 +25,8 @@ does not run. ``Graphed`` takes back what the capture added to the counts
 and adds it again on every replay, so the counts stay those of an eager
 run.
 
-``resolve_cuda_graph`` resolves a trainer's ``cuda_graph`` argument:
-"auto" is True on CUDA without a mesh. With a mesh the step holds NCCL
+``resolve_cuda_graph`` resolves a ``cuda_graph`` argument, a trainer's
+or an inference call's: "auto" is True on CUDA without a mesh. With a mesh the step holds NCCL
 collectives, whose capture is not done here, so the data-parallel loop
 stays eager.
 """
@@ -55,8 +57,8 @@ def resolve_cuda_graph(cuda_graph, device: Optional[torch.device],
                              "pass cuda_graph='auto' or False")
         return False
     if cuda_graph is True and device.type != "cuda":
-        raise ValueError(f"cuda_graph=True needs a CUDA device, training is "
-                         f"on {device}")
+        raise ValueError(f"cuda_graph=True needs a CUDA device, the call "
+                         f"is on {device}")
     return cuda_graph is True or (cuda_graph == "auto"
                                   and device.type == "cuda")
 
@@ -77,17 +79,22 @@ class Graphed:
             the ctypes kernels' first-launch attributes, Adam's state).
         generators: every CUDA generator the body draws from.
         stream: the side stream to capture on.
+        pool: a memory pool (``torch.cuda.graph_pool_handle()``) to capture
+            into, shared with other graphs; None gives the graph its own.
+            Graphs that share a pool may reuse each other's freed memory,
+            so their replays must not overlap, and each replay's outputs
+            must be read before another graph of the pool replays.
 
     A capture or replay that fails raises; nothing falls back to eager.
     """
 
     def __init__(self, body: Callable, generators: Iterable[torch.Generator],
-                 stream: torch.cuda.Stream):
+                 stream: torch.cuda.Stream, pool=None):
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             if g.device.type != "cuda":
                 raise ValueError(
-                    f"a graphed loop draws from CUDA generators only, got one "
+                    f"a CUDA graph draws from CUDA generators only, got one "
                     f"on {g.device}; pass a CUDA generator, or "
                     f"cuda_graph=False to draw from this one eagerly")
             self.graph.register_generator_state(g)
@@ -95,7 +102,7 @@ class Graphed:
         # thread_local: another thread's CUDA calls during the capture (an
         # NCCL watchdog's, say) do not void it; the autograd engine's
         # launches onto the capturing stream are captured all the same.
-        with torch.cuda.graph(self.graph, stream=stream,
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
             self.out = body()
         self.launches = [a - b for a, b in zip(_counts(), before)]

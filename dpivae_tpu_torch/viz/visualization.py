@@ -31,16 +31,22 @@ point instead (``data=``, ``noise=``), which is how the tests hand it
 JAX's.
 
 Every function that computes data runs on the CUDA device unless
-``device`` says otherwise, and the params must be there.
+``device`` says otherwise, and the params must be there. There its
+sampling calls replay CUDA graphs (``cuda_graph="auto"``,
+``utils/graph_cache.py``), as the JAX module jits them: one graph per
+(n_plot, slots) signature, replayed at each traversal point with that
+point's seed; ``cuda_graph=False`` runs them eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from dpivae_tpu_torch.train.graph import resolve_cuda_graph
 from dpivae_tpu_torch.utils import (
     ALPHA_INTERP,
     CMAP_NAME,
@@ -50,6 +56,10 @@ from dpivae_tpu_torch.utils import (
     to_numpy,
 )
 from dpivae_tpu_torch.utils.data import sample_response
+from dpivae_tpu_torch.utils.graph_cache import (
+    cached_sample,
+    cached_sample_prior,
+)
 
 Key = Union[int, Tuple[int, ...]]
 
@@ -135,17 +145,22 @@ def _points(case, idx, n_interp, n_plot, key, data, device):
     return x, c, y, traversal_grid(case, idx, n_interp)[1]
 
 
-def _sample_points(model, params, config, x, c, cond, keys, noise, slots):
+def _sample_points(model, params, config, x, c, cond, keys, noise, slots,
+                   cuda_graph):
     """``model.sample`` with n = 1 at each traversal point i, on x[:, i]
-    and c[:, i], from the generator of ``keys[i]`` or from ``noise[i]``;
-    only ``slots`` are computed."""
+    and c[:, i] (contiguous copies, as a graph's static buffers hold
+    them), from the generator of ``keys[i]`` or from ``noise[i]``; only
+    ``slots`` are computed. Graphed, each point replays the graph of the
+    (n_plot, slots) signature."""
+    sample = (functools.partial(cached_sample, model)
+              if resolve_cuda_graph(cuda_graph, x.device) else model.sample)
     outs = []
     for i in range(x.shape[1]):
         draw = (dict(noise=noise[i]) if noise is not None else
                 dict(generator=key_generator(keys[i], x.device)))
-        outs.append(model.sample(params, x[:, i], c[:, i], cond=cond, n=1,
-                                 grl_alpha=config.lambda_g0, slots=slots,
-                                 **draw))
+        outs.append(sample(params, x[:, i].contiguous(),
+                           c[:, i].contiguous(), cond=cond, n=1,
+                           grl_alpha=config.lambda_g0, slots=slots, **draw))
     return outs
 
 
@@ -153,7 +168,7 @@ def _sample_points(model, params, config, x, c, cond, keys, noise, slots):
 def pred_decomposition(model, params, config, case, idx: int, n_interp: int,
                        n_plot: int, cond: bool = False, key: Key = 0, *,
                        data=None, noise: Optional[Sequence] = None,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, cuda_graph="auto"):
     """The data of ``plot_pred`` and of one column of ``plot_interp_pred``:
     at each traversal point of factor ``idx``, the mean and (population)
     std over the n_plot axis of x̂ = x_sample, x̂_p and x̂_d, and the data's
@@ -167,7 +182,7 @@ def pred_decomposition(model, params, config, case, idx: int, n_interp: int,
                              device)
     outs = _sample_points(model, params, config, x, c, cond,
                           [fold_in(k_samp, i) for i in range(n_interp)],
-                          noise, slots=(0, 1, 2))
+                          noise, slots=(0, 1, 2), cuda_graph=cuda_graph)
     stats = {name: [] for name in PRED_STATS}
     for i, out in enumerate(outs):
         stats["x_data_mean"].append(x[:, i].mean(dim=0))
@@ -177,18 +192,19 @@ def pred_decomposition(model, params, config, case, idx: int, n_interp: int,
     return {name: torch.stack(v) for name, v in stats.items()}, sweep
 
 
-def _latents(model, params, config, x, c, cond, keys, noise):
+def _latents(model, params, config, x, c, cond, keys, noise, cuda_graph):
     """(zx, zc, zy), each (n_interp, n_plot, nz_*): the posterior latents
     at each traversal point; no decoder runs."""
     outs = _sample_points(model, params, config, x, c, cond, keys, noise,
-                          slots=(5, 6, 7))
+                          slots=(5, 6, 7), cuda_graph=cuda_graph)
     return tuple(torch.stack([out[s][0] for out in outs]) for s in (5, 6, 7))
 
 
 @torch.no_grad()
 def corner_data(model, params, config, case, idx: int, n_interp: int,
                 n_plot: int, cond: bool = False, key: Key = 0, *, data=None,
-                noise: Optional[Sequence] = None, device: DeviceLike = None):
+                noise: Optional[Sequence] = None, device: DeviceLike = None,
+                cuda_graph="auto"):
     """The data of ``interp_corner_latent_space``: ((zx, zc, zy) at each
     traversal point of factor ``idx``, each (n_interp, n_plot, nz_*),
     sweep). ``key`` splits into the data's key and the samples' key, whose
@@ -198,14 +214,15 @@ def corner_data(model, params, config, case, idx: int, n_interp: int,
     x, c, _, sweep = _points(case, idx, n_interp, n_plot, k_data, data,
                              device)
     keys = [fold_in(k_samp, i) for i in range(n_interp)]
-    return _latents(model, params, config, x, c, cond, keys, noise), sweep
+    return _latents(model, params, config, x, c, cond, keys, noise,
+                    cuda_graph), sweep
 
 
 @torch.no_grad()
 def marginal_post_data(model, params, config, case, idx: int, n_interp: int,
                        n_plot: int, cond: bool = False, key: Key = 0, *,
                        data=None, noise: Optional[Sequence] = None,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, cuda_graph="auto"):
     """The data of one column of ``plot_marginal_post``: ((zx, zc, zy) at
     each traversal point of factor ``idx``, sweep). The factor's key,
     ``fold_in(key, idx)``, draws the data, and its ``fold_in(2000 + i)``
@@ -215,14 +232,15 @@ def marginal_post_data(model, params, config, case, idx: int, n_interp: int,
     x, c, _, sweep = _points(case, idx, n_interp, n_plot, k_data, data,
                              device)
     keys = [fold_in(k_data, 2000 + i) for i in range(n_interp)]
-    return _latents(model, params, config, x, c, cond, keys, noise), sweep
+    return _latents(model, params, config, x, c, cond, keys, noise,
+                    cuda_graph), sweep
 
 
 @torch.no_grad()
 def marginal_prior_data(model, params, config, case, idx: int,
                         n_interp: int, n_plot: int, key: Key = 0, *,
                         data=None, noise: Optional[Sequence] = None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None, cuda_graph="auto"):
     """The data of one column of ``plot_marginal_prior``: ((zc, zy) drawn
     from the learned priors p(z_c|c) and p(z_y|y) at each traversal point
     of factor ``idx``, each (n_interp, n_plot, nz_*), sweep). The factor's
@@ -233,12 +251,15 @@ def marginal_prior_data(model, params, config, case, idx: int,
     k_data = fold_in(key, idx)
     _, c, y, sweep = _points(case, idx, n_interp, n_plot, k_data, data,
                              device)
+    sample_prior = (functools.partial(cached_sample_prior, model)
+                    if resolve_cuda_graph(cuda_graph, device) else
+                    functools.partial(model.sample_prior, device=device))
     zc, zy = [], []
     for i in range(n_interp):
         draw = (dict(noise=noise[i]) if noise is not None else dict(
             generator=key_generator(fold_in(k_data, 1000 + i), device)))
-        out = model.sample_prior(params, c[:, i], y[:, i], n=1,
-                                 device=device, **draw)
+        out = sample_prior(params, c[:, i].contiguous(),
+                           y[:, i].contiguous(), n=1, **draw)
         zc.append(out[0][0])
         zy.append(out[2][0])
     return (torch.stack(zc), torch.stack(zy)), sweep
@@ -249,7 +270,8 @@ def ground_truth_posterior_data(model, params, config, case, sample_dist,
                                 n_plot: int, cond: bool = False,
                                 key: Key = 0, *, data=None, noise=None,
                                 prior_samples=None,
-                                device: DeviceLike = None):
+                                device: DeviceLike = None,
+                                cuda_graph="auto"):
     """The data of ``plot_ground_truth_posterior``: (the ground-truth z_x
     of n_plot responses drawn from ``sample_dist``, the posterior z_x of
     those responses, n_plot draws of the fixed z_x prior), each
@@ -272,7 +294,7 @@ def ground_truth_posterior_data(model, params, config, case, sample_dist,
                                     device=device)
     (out,) = _sample_points(model, params, config, x[:, None], c[:, None],
                             cond, [k_samp], None if noise is None else [noise],
-                            slots=(5,))
+                            slots=(5,), cuda_graph=cuda_graph)
     return z[:, list(case.z_idx_x)], out[5][0], prior_samples
 
 
