@@ -162,13 +162,16 @@ Phases; any failure exits non-zero before the result line:
    ("dp",))`` must come up as a one-rank NCCL group on cuda:0 (a gloo
    group fails the phase). ``train_model(mesh=...)`` on simple_beam /
    "dpivae" at bench.py's workload with the preset's "auto" (the kernels),
-   500 steps after a 20-step warm-up of each run, against the same run
-   without the mesh from the same seed: the forward launches n_iter +
-   n_iter / val_freq times and the hidden kernel n_iter times inside the
-   data-parallel step, params and logs equal (max difference printed;
-   rtol/atol 1e-5, a one-rank sum being the identity), steps/s of both
-   in turns, and torch.profiler's view of one data-parallel step (the
-   NCCL kernels and the host's all-reduce op, the busy share). Then
+   500 steps after a 20-step warm-up of each run: the block graph with
+   its NCCL all-reduces captured (one capture, one replay and one host
+   read a block after the first; the forward launches n_iter + n_iter /
+   val_freq times and the hidden kernel n_iter times), against the same
+   mesh's eager loop (``cuda_graph=False``; params and logs equal, max
+   difference 0) and against the graphed run without the mesh (max
+   difference printed; rtol/atol 1e-5, a one-rank sum being the
+   identity), steps/s of all three in turns, and torch.profiler's view of
+   one replayed data-parallel block beside an eager one (the NCCL kernels
+   and memcpys, the busy share). Then
    ``train_sweep`` over 66 damped_oscillator members with use_pallas=True,
    200 steps, over a one-rank "sweep" mesh against the unsharded sweep
    (equal; launches counted; member-steps/s of both), and the study
@@ -201,26 +204,33 @@ Phases; any failure exits non-zero before the result line:
    127.0.0.1 from a thread: 20 POSTs of phase 4's 512-point request, each
    equal to ``ServedPredictor`` called directly with the same seed, the
    median wall of both, and 4 concurrent clients equal to serial calls.
-16. The graphed training loop (``train/graph.py``; every training above
-   already ran through it, "auto" on CUDA) against the eager loop
-   (``cuda_graph=False``) from the same seeds and weights, each pair's
-   rows, validations and params compared (max_abs_err expected 0):
-   simple_beam / "dpivae" at bench.py's workload with use_pallas=True,
-   500 steps, with a sigmoid λ and a cyclical β_x schedule (both change
-   inside the window), the launches counted (550 / 500), steps/s of both
-   loops as the median of 3 warm runs each in turns, and one replayed
-   step's wall, device busy share and kernel count under torch.profiler
-   beside one eager step's; an early stop under the graph (patience 1, a
-   one-sample validation and 10x learning rates, 200 steps: it latches
-   after the first block, so inside the replays), its stop iteration equal
-   to eager's; phase 10's 66-member damped_oscillator sweep, 300 steps,
+16. The block graph of the training loop (``train/train.py``,
+   ``train/graph.py``; every training above already ran through it,
+   "auto" on CUDA) against the eager loop (``cuda_graph=False``) from the
+   same seeds and weights, each pair's rows, validations and params
+   compared (max_abs_err expected 0), and each graphed run's loop counted:
+   one capture, then one replay and one host read of the all-stopped
+   flag a block, one block behind, so a run ends one block after its
+   stop; launches blocks run x (val_freq + 1) forward and blocks run x
+   val_freq hidden (the steps masked past a stop or past n_iter launch
+   too). simple_beam / "dpivae" at bench.py's workload with
+   use_pallas=True, 500 steps, with a sigmoid λ and a cyclical β_x
+   schedule (both change inside the window), steps/s of both loops as
+   the median of 3 warm runs each in turns, and one replayed block's
+   wall, device busy share and kernels under torch.profiler beside one
+   eager block's, with the block graph's pool; an early stop at block 1
+   (a β_x scaled by 10 that is 0 at block 0's validation and 10 at block
+   1's, learning rates 1e-5: 3 blocks run), one in a later block
+   (patience 1, a one-sample validation and 10x learning rates, 200
+   steps) and a partial last block (n_iter 55: 6 blocks, 60 steps
+   launched); phase 10's 66-member damped_oscillator sweep, 300 steps,
    "auto" (plain) and use_pallas=True, member-steps/s of both loops in
-   turns, a replayed 66-member step profiled, and the use_pallas=True sweep
-   with per-member early stops (patience 1, min_delta 0, a one-sample
-   validation and 10x learning rates: members stop at their own blocks,
-   frozen between replays); phase 12's 24-member bridge / "DPIVAE-A" grid
-   (P model, use_pallas=True, 100 steps); and the 66 members with
-   remat_decode (200 steps).
+   turns, a replayed 66-member block profiled, and the use_pallas=True
+   sweep with per-member early stops (patience 1, min_delta 0, a
+   one-sample validation and 10x learning rates: members stop at their
+   own blocks, frozen inside the graph); phase 12's 24-member bridge /
+   "DPIVAE-A" grid (P model, use_pallas=True, 100 steps); and the 66
+   members with remat_decode (200 steps, the forward twice a step).
 17. The graphed inference path (``utils/graph_cache.py``; every inference
    above already ran through it, "auto" on CUDA) against the eager calls
    (``cuda_graph=False``) from the same seeds and weights, max_abs_err
@@ -267,6 +277,13 @@ import time
 import torch
 
 SEED = 0
+# Launch checks of training: a run launches blocks run x (val_freq + 1)
+# forward and blocks run x val_freq hidden kernels (one forward and one
+# hidden a step, masked steps included, one forward a validation; the
+# forward twice a step under remat_decode). Every n_iter below is a
+# multiple of val_freq, and the runs that are not checked for a stop
+# (``_check_loop``) do not stop, so their blocks run are n_iter /
+# val_freq: n_iter + n_iter / val_freq forward and n_iter hidden.
 RTOL = ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_TOL = 1e-4
@@ -301,6 +318,8 @@ N_HTTP_REQUESTS = 20
 # so that a schedule row baked into a graph would show.
 N_ITER_GRAPH = 500
 N_ITER_GRAPH_STOP = 200
+N_ITER_GRAPH_STOP_1 = 100
+N_ITER_GRAPH_PARTIAL = 55   # a partial last block: 5 steps past n_iter
 GRAPH_TIMED_RUNS = 3
 GRAPH_ANNEALING = dict(lambda_annealing="sigmoid",
                        beta_x_annealing="cyclical")
@@ -309,6 +328,15 @@ GRAPH_ANNEALING = dict(lambda_annealing="sigmoid",
 GRAPH_EARLY_STOP = dict(patience=1, min_delta=0.0, n_mc_val=1,
                         **{f"lr_{k}": 0.01 for k in ("e", "p", "dx", "dc",
                                                      "dy")})
+# A stop that latches at block 1, the first it can latch at: a cyclical
+# β_x of 20-step cycles whose ramp is half of each, scaled by 10, so 0 at
+# block 0's validation and 10 at block 1's, lifts the validation loss by
+# ten times the KL of z_x, and learning rates of 1e-5 keep training from
+# undoing it.
+GRAPH_STOP_BLOCK_1 = dict(
+    patience=1, min_delta=0.0, beta_x0=10.0, beta_x_annealing="cyclical",
+    beta_x_n_cycles=5, beta_x_R=0.5,
+    **{f"lr_{k}": 1e-5 for k in ("e", "p", "dx", "dc", "dy", "sigma")})
 # BASELINE.md's JAX transfer study (extrapolation, 20,000 steps, reference
 # scale), mean ± std of the test R² over its 24 folds: a quality
 # reference printed beside this run's, not a threshold.
@@ -2193,11 +2221,12 @@ def _max_diff(got, want) -> float:
 
 
 def _mesh_train(ops, failures, card, mesh):
-    """Phase 14 (b): train_model over the one-rank "dp" mesh against the
-    same run without it, launches counted, steps/s in turns, and a
-    profile of one data-parallel step. Returns its launches."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Phase 14 (b): train_model over the one-rank "dp" mesh, its block
+    graph replayed with the NCCL all-reduces captured, against the same
+    mesh's eager loop (bit for bit) and the graphed run without the mesh
+    (within RTOL / ATOL), launches counted, steps/s of all three in
+    turns, and a profile of one replayed data-parallel block. Returns its
+    launches."""
     from dpivae_tpu_torch import TrainConfig
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.train import init_params, setup_model, train_model
@@ -2215,38 +2244,52 @@ def _mesh_train(ops, failures, card, mesh):
     model = setup_model(cfg, case, data_train, device="cuda")
     params = init_params(cfg, model, device="cuda")
     n_params = sum(p.numel() for p in params.parameters())
+    modes = {"mesh": (True, "auto"), "mesh eager": (True, False),
+             "no mesh": (False, "auto")}
 
-    def run(use_mesh, n_iter=N_ITER_MESH):
+    def run(mode, n_iter=N_ITER_MESH):
+        use_mesh, cuda_graph = modes[mode]
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = train_model(cfg.replace(n_iter=n_iter), model, case,
-                          data_train, data_val, params=params, generator=g,
-                          device="cuda", mesh=mesh if use_mesh else None)
+        with _LoopCounts() as counts:
+            out = train_model(cfg.replace(n_iter=n_iter), model, case,
+                              data_train, data_val, params=params,
+                              generator=g, device="cuda",
+                              mesh=mesh if use_mesh else None,
+                              cuda_graph=cuda_graph)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        return out, time.perf_counter() - t0, counts
 
-    for use_mesh in (True, False):
-        run(use_mesh, N_ITER_WARM)
-    ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
-    (mesh_params, mesh_logs), t_mesh = run(True)
-    launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
-    (plain_params, plain_logs), t_plain = run(False)
-    times = {"mesh": [t_mesh, run(True)[1]],
-             "plain": [t_plain, run(False)[1]]}
+    for mode in modes:
+        run(mode, N_ITER_WARM)
+    results, times, launches = {}, {mode: [] for mode in modes}, None
+    for mode in modes:
+        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        results[mode], seconds, counts = run(mode)
+        times[mode].append(seconds)
+        if mode == "mesh":
+            launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+            _check_loop("data-parallel simple_beam (one-rank NCCL mesh)",
+                        counts, results[mode][1], cfg, failures, launches)
+    for mode in reversed(list(modes)):
+        times[mode].append(run(mode)[1])
     n = N_ITER_MESH
-    want = (n + n // cfg.val_freq, n)
+    (mesh_params, mesh_logs), (eager_params, eager_logs), \
+        (plain_params, plain_logs) = (results[m] for m in modes)
+    own = max(_max_diff(mesh_logs, eager_logs),
+              _max_diff(mesh_params.state_dict(), eager_params.state_dict()))
     worst = max(_max_diff(mesh_logs, plain_logs),
                 _max_diff(mesh_params.state_dict(), plain_params.state_dict()))
     print(f"mesh train_model simple_beam / 'dpivae' ({card}): {n} steps "
           f"over {mesh}, use_pallas {cfg.use_pallas!r} resolved to "
-          f"{model.use_pallas}; launches fused_mlp_fwd {launches[0]}, "
-          f"fused_mlp_hidden {launches[1]} (expected {want[0]}, {want[1]}); "
-          f"params and logs against the run without the mesh: max_abs_err "
+          f"{model.use_pallas}; params and logs, the block graph against "
+          f"the mesh's eager loop: max_abs_err {own:.3e} (expected 0); "
+          f"against the graphed run without the mesh: max_abs_err "
           f"{worst:.3e} (rtol {RTOL} atol {ATOL})")
-    if launches != want:
-        failures.append(f"mesh train_model: launches {launches}, expected "
-                        f"{want}")
+    if own != 0:
+        failures.append(f"mesh train_model: the block graph differs from "
+                        f"the mesh's eager loop by {own:.3e}")
     ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
              for a, b in zip(mesh_logs, plain_logs)) and all(
         torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(
@@ -2255,47 +2298,34 @@ def _mesh_train(ops, failures, card, mesh):
     if not ok or mesh_logs.stop_iter != n:
         failures.append("mesh train_model: params or logs differ from the "
                         "run without the mesh")
-    steps_s = {k: [n / t for t in v] for k, v in times.items()}
-    print(f"mesh train_model steps/s ({card}), warm runs in turns mesh, "
-          f"plain, mesh, plain: with the mesh "
-          + " / ".join(f"{r:.1f}" for r in steps_s["mesh"])
-          + ", without " + " / ".join(f"{r:.1f}" for r in steps_s["plain"]))
+    print(f"mesh train_model steps/s ({card}), warm runs in turns "
+          + ", ".join(modes) + ", then back: " + "; ".join(
+              f"{mode} " + " / ".join(f"{n / t:.1f}" for t in times[mode])
+              for mode in modes))
 
-    # One warm data-parallel step under the profiler.
+    # One warm data-parallel block, replayed, under the profiler.
     trainer = Trainer(cfg, case, params, data_train, data_val,
                       cfg.lambda_g0, mesh=mesh)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for i in range(5):
-        trainer.step(i, generator=g)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(5, 25):
-        trainer.step(i, generator=g)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / 20
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step(25, generator=g)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = _device_events(prof)
-    _print_profile("one data-parallel train step (one-rank NCCL mesh)",
-                   events, wall_ms, step_ms)
+    _, _, events, prof = _profile_block(
+        trainer, torch.Generator(device="cuda").manual_seed(SEED + 2),
+        "data-parallel (one-rank NCCL mesh)")
     nccl = [e for e in events if "nccl" in e.key.lower()]
+    copies = [e for e in events if "memcpy" in e.key.lower()]
     host = [e for e in prof.key_averages()
             if "allreduce" in e.key.lower().replace("_", "")
             and not e.is_user_annotation]
-    print(f"profile: NCCL device kernels in the step: "
+    print(f"profile: NCCL device kernels in the replayed block: "
           f"{sum(e.count for e in nccl)}, "
           f"{sum(e.self_device_time_total for e in nccl) / 1e3:.4f} ms "
           + (f"({', '.join(e.key[:60] for e in nccl)})" if nccl else
-             "(none: NCCL reduces one rank on the host side)")
-          + "; host all-reduce ops: " + (", ".join(
-              f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.4f} ms"
-              for e in host) or "none")
+             "(none: one rank's all-reduce launches no kernel)")
+          + f"; memcpys {sum(e.count for e in copies)}, "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3:.4f} ms ("
+          + ", ".join(f"{e.key[:40]} x{e.count}" for e in copies)
+          + "); host all-reduce ops in the replay: " + (", ".join(
+              f"{e.key} x{e.count}" for e in host) or "none")
           + f"; one all-reduce a step of {n_params} params + 8 log "
-          f"components = {4 * (n_params + 8)} bytes")
+          f"components = {4 * (n_params + 8)} bytes, one a validation")
     return launches
 
 
@@ -2836,13 +2866,100 @@ def _phase15(ops, failures, card, served, request):
 # Phase 16: the graphed training loop against the eager loop
 # ----------------------------------------------------------------------
 
+class _LoopCounts:
+    """Counts, while it is entered, the training loop's block-graph
+    captures and replays and the host's reads of the all-stopped flag
+    (``train.train._LaggedFlag.read``)."""
+
+    def __enter__(self):
+        from dpivae_tpu_torch.train import train as train_mod
+
+        self.captures = self.replays = self.reads = 0
+        counts, self._mod = self, train_mod
+        self._saved = (train_mod.Graphed, train_mod._LaggedFlag.read)
+        graphed, read = self._saved
+
+        class Counted(graphed):
+            def __init__(self, *args, **kwargs):
+                counts.captures += 1
+                super().__init__(*args, **kwargs)
+
+            def replay(self):
+                counts.replays += 1
+                return super().replay()
+
+        def counted_read(flag, block):
+            counts.reads += 1
+            return read(flag, block)
+
+        train_mod.Graphed = Counted
+        train_mod._LaggedFlag.read = counted_read
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.Graphed, self._mod._LaggedFlag.read = self._saved
+        return False
+
+    def __repr__(self):
+        return (f"{self.captures} capture, {self.replays} replays, "
+                f"{self.reads} host reads")
+
+
+def _blocks_run(logs, cfg) -> int:
+    """The blocks the loop ran: every block, or the block at which the
+    last run stopped and the one after it (the host reads the flag one
+    block behind)."""
+    n_blocks = -(-cfg.n_iter // cfg.val_freq)
+    live = logs.val_active.reshape(-1, n_blocks).sum(dim=1)
+    if bool((live == n_blocks).any()):
+        return n_blocks
+    return min(int(live.max()) + 1, n_blocks)
+
+
+def _block_launches(blocks, cfg, forward_per_step=1):
+    """(forward, hidden) launches of ``blocks`` validation blocks: each
+    block's val_freq steps (their masked steps past n_iter and those
+    after a stop included) launch the forward ``forward_per_step`` times
+    and the hidden kernel once; its validation launches the forward
+    once."""
+    vf = cfg.val_freq
+    return blocks * (vf * forward_per_step + 1), blocks * vf
+
+
+def _check_loop(what, counts, logs, cfg, failures, launches=None,
+                forward_per_step=1):
+    """A graphed run's loop against the block design: one capture when it
+    ran more than one block, one replay and one host read a block after
+    the first; and, given, its launches against ``_block_launches``."""
+    blocks = _blocks_run(logs, cfg)
+    want = (int(blocks > 1), blocks - 1, blocks - 1)
+    got = (counts.captures, counts.replays, counts.reads)
+    print(f"block graph, {what}: {blocks} blocks run, {counts} (expected "
+          f"{want[0]} capture, one replay and one host read a block after "
+          f"the first: {want[1]}, {want[2]}); graph launches per block "
+          f"1, host reads per block 1, one block behind")
+    if got != want:
+        failures.append(f"block graph ({what}): captures, replays, reads "
+                        f"{got}, expected {want}")
+    if launches is not None:
+        expected = _block_launches(blocks, cfg, forward_per_step)
+        print(f"block graph, {what}: launches {launches}, expected "
+              f"{expected} = ({blocks} blocks x (val_freq "
+              f"{cfg.val_freq} x {forward_per_step} + 1), {blocks} x "
+              f"{cfg.val_freq})")
+        if tuple(launches) != expected:
+            failures.append(f"block graph ({what}): launches {launches}, "
+                            f"expected {expected}")
+    return blocks
+
+
 def _graph_pair(what, run, failures, n_timed=0):
-    """``run(cuda_graph)`` -> (result, params, logs, launches, seconds),
-    once graphed and once eager, then ``n_timed`` warm runs of each in
-    turns (eager, graphed, graphed, eager, ...). Prints and checks the
-    pair's max_abs_err over rows, validations and params (expected 0) and
-    returns (graphed result, its launches, the seconds of the timed runs
-    by loop)."""
+    """``run(cuda_graph)`` -> (loop counts, params, logs, launches,
+    seconds), once graphed and once eager, then ``n_timed`` warm runs of
+    each in turns (eager, graphed, graphed, eager, ...). Prints and checks
+    the pair's max_abs_err over rows, validations and params (expected
+    0) and returns (graphed result, the seconds of the timed runs by
+    loop)."""
     got, want = run(True), run(False)
     worst = max(_max_diff(got[2], want[2]), _max_diff(got[1], want[1]))
     print(f"graph vs eager, {what}: rows, validations and params "
@@ -2859,67 +2976,81 @@ def _graph_pair(what, run, failures, n_timed=0):
     return got, times
 
 
-def _graph_profile(what, step, first, step_ms_eager=None):
+def _graph_profile(what, step, first):
     """torch.profiler's view of one warm call ``step(i)`` (a replayed or
-    an eager step), after 5 warm calls and 20 timed ones from index
-    ``first``. Returns its unprofiled wall per step in ms."""
+    an eager block), after 2 warm calls and 10 timed ones from index
+    ``first``. Returns its unprofiled wall per call in ms, the profiled
+    device events and the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    for i in range(first, first + 5):
+    for i in range(first, first + 2):
         step(i)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(first + 5, first + 25):
+    for i in range(first + 2, first + 12):
         step(i)
     torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / 20
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(first + 25)
+        step(first + 12)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = _device_events(prof)
     _print_profile(what, events, wall_ms, step_ms)
     for kernel in ("fused_mlp_fwd_kernel", "fused_mlp_hidden_kernel"):
         _per_launch(events, kernel, what)
-    return step_ms
+    return step_ms, events, prof
 
 
-def _profile_graphed_steps(run, generators, eager_calls, bodies, what):
-    """One replayed and one eager train step of ``run`` (a Trainer or a
-    MemberTrainer drawing from ``generators``), each under the profiler,
-    then one replayed and one eager validation pass, on the side stream
-    the graphed loop uses. ``eager_calls``: (step(i), validate(i)) of
-    the eager loop; ``bodies``: the step and validation bodies that
-    read the index in ``run.step_t``."""
+def _profile_block(run, generators, what):
+    """One eager and one replayed validation block of ``run`` (a Trainer
+    or a MemberTrainer whose config has at least 30 blocks, drawing from
+    ``generators``: a generator or the members' list), each timed over 10
+    blocks after 2 warm ones and then profiled, on the side stream the
+    graphed loop uses. Returns (replayed ms, eager ms, the replayed
+    block's device events, its profiler)."""
     from dpivae_tpu_torch.train.graph import Graphed, SideStream
 
+    gens = generators if isinstance(generators, list) else [generators]
+    body = lambda: run.block_body(generators)
+
+    def eager(i):
+        run.block_t.fill_(i)
+        body()
+
     with SideStream(torch.device("cuda")) as stream:
-        for i in range(10):
-            eager_calls[0](i)
-        eager_calls[1](0)
-        for kind, body, eager, first in zip(
-                ("step", "validation"), bodies, eager_calls, (10, 40)):
-            eager_ms = _graph_profile(f"one eager {what} {kind}", eager,
-                                      first)
-            graph = Graphed(body, generators, stream)
+        eager(0)
+        eager_ms = _graph_profile(f"one eager {what} block", eager, 1)[0]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graph = Graphed(body, gens, stream)
+        torch.cuda.synchronize()
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        pool_mb = (torch.cuda.memory_reserved() - before) / 2**20
 
-            def replay(i):
-                run.step_t.fill_(i)
-                graph.replay()
+        def replay(i):
+            run.block_t.fill_(i)
+            graph.replay()
 
-            graph_ms = _graph_profile(f"one replayed {what} {kind}", replay,
-                                      first + 30)
-            print(f"graphed {what} {kind}: {graph_ms:.3f} ms replayed "
-                  f"against {eager_ms:.3f} ms eager "
-                  f"({eager_ms / graph_ms:.1f}x)")
+        graph_ms, events, prof = _graph_profile(
+            f"one replayed {what} block", replay, 15)
+    print(f"graphed {what} block: {graph_ms:.3f} ms replayed against "
+          f"{eager_ms:.3f} ms eager ({eager_ms / graph_ms:.1f}x), "
+          f"{graph_ms / run.config.val_freq:.3f} ms a step; its capture "
+          f"took {capture_ms:.1f} ms and reserved {pool_mb:.1f} MiB (its "
+          f"pool)")
+    return graph_ms, eager_ms, events, prof
 
 
 def _graph_single(ops, failures, card, setup):
     """Phase 16 (a, b): simple_beam / "dpivae" at bench.py's workload,
-    graphed against eager, timed, one replayed step profiled; then an
-    early stop under the graph. Returns the launches of the counted
+    graphed against eager, timed, one replayed block profiled; then an
+    early stop at block 1, one in a later block and a partial last block,
+    each graphed against eager. Returns the launches of the counted
     graphed runs."""
     from dpivae_tpu_torch.train import train_model
     from dpivae_tpu_torch.train.train import Trainer
@@ -2934,12 +3065,13 @@ def _graph_single(ops, failures, card, setup):
             ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p, logs = train_model(cfg, model, case, data_train, data_val,
-                                  params=params, generator=g, device="cuda",
-                                  cuda_graph=graphed)
+            with _LoopCounts() as counts:
+                p, logs = train_model(cfg, model, case, data_train,
+                                      data_val, params=params, generator=g,
+                                      device="cuda", cuda_graph=graphed)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            return (None, p.state_dict(), logs,
+            return (counts, p.state_dict(), logs,
                     (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches),
                     seconds)
         return run
@@ -2949,16 +3081,11 @@ def _graph_single(ops, failures, card, setup):
         f"simple_beam / 'dpivae' {n} steps, sigmoid λ and cyclical β_x",
         runner(cfg), failures, GRAPH_TIMED_RUNS)
     logs, launches = got[2], got[3]
-    want = (n + n // cfg.val_freq, n)
+    _check_loop("simple_beam", got[0], logs, cfg, failures, launches)
     lam, beta_x = (logs.train[:, c] for c in (8, 9))
-    print(f"graphed simple_beam ({card}): launches fused_mlp_fwd "
-          f"{launches[0]}, fused_mlp_hidden {launches[1]} (expected "
-          f"{want[0]}, {want[1]}); λ {float(lam[0]):.3e} -> "
+    print(f"graphed simple_beam ({card}): λ {float(lam[0]):.3e} -> "
           f"{float(lam[-1]):.3e} ({len(torch.unique(lam))} values), β_x "
           f"{len(torch.unique(beta_x))} values")
-    if launches != want:
-        failures.append(f"graphed simple_beam: launches {launches}, "
-                        f"expected {want}")
     if len(torch.unique(lam)) < 10 or len(torch.unique(beta_x)) < 10:
         failures.append("graphed simple_beam: the schedules did not change")
     total = [a + b for a, b in zip(total, launches)]
@@ -2974,24 +3101,41 @@ def _graph_single(ops, failures, card, setup):
 
     trainer = Trainer(cfg, case, copy.deepcopy(params), data_train, data_val,
                       cfg.lambda_g0)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    _profile_graphed_steps(
-        trainer, [g], (lambda i: trainer.step(i, generator=g),
-                       lambda i: trainer.validate(i, generator=g)),
-        (lambda: trainer.step_body(g), lambda: trainer.validate_body(g)),
-        "simple_beam / 'dpivae'")
+    _profile_block(trainer, torch.Generator(device="cuda").manual_seed(
+        SEED + 2), "simple_beam / 'dpivae'")
+    print(f"memory: a saved state of simple_beam's params and Adam state "
+          f"(the block keeps two, entry and mid, outside the graph's pool) "
+          f"{sum(t.numel() * t.element_size() for t in trainer._state)} "
+          f"bytes")
 
-    stop_cfg = cfg.replace(n_iter=N_ITER_GRAPH_STOP, **GRAPH_EARLY_STOP)
-    got, _ = _graph_pair(
-        f"simple_beam early stop (patience 1, n_mc_val 1, 10x lr, "
-        f"{N_ITER_GRAPH_STOP} steps)", runner(stop_cfg), failures)
-    stop = got[2].stop_iter
-    print(f"graphed early stop: latched at iteration {stop} (block "
-          f"{stop // cfg.val_freq}); the graphs replay from block 1")
-    if not cfg.val_freq < stop < N_ITER_GRAPH_STOP:
-        failures.append(f"graphed early stop: stop_iter {stop}, expected a "
-                        f"stop after block 0 within {N_ITER_GRAPH_STOP}")
-    total = [a + b for a, b in zip(total, got[3])]
+    stops = (
+        ("at block 1 (a cyclical β_x, 0 at block 0's validation and 10 "
+         "at block 1's, and learning rates of 1e-5)", GRAPH_STOP_BLOCK_1,
+         N_ITER_GRAPH_STOP_1, 1),
+        ("in a later block (patience 1, n_mc_val 1, 10x lr)",
+         GRAPH_EARLY_STOP, N_ITER_GRAPH_STOP, None),
+        ("none, a partial last block", dict(patience=10**9),
+         N_ITER_GRAPH_PARTIAL, None),
+    )
+    for what, over, n_iter, block in stops:
+        stop_cfg = cfg.replace(n_iter=n_iter, **over)
+        got, _ = _graph_pair(f"simple_beam early stop {what}, {n_iter} "
+                             f"steps", runner(stop_cfg), failures)
+        logs = got[2]
+        blocks = _check_loop(f"simple_beam, stop {what}", got[0], logs,
+                             stop_cfg, failures, got[3])
+        stop = logs.stop_iter
+        print(f"graphed early stop {what}: stop iteration {stop} (block "
+              f"{int(logs.val_active.sum()) - 1}), {blocks} blocks run")
+        if n_iter % stop_cfg.val_freq:
+            ok = stop == n_iter
+        elif block is not None:
+            ok = stop == block * stop_cfg.val_freq + 1
+        else:
+            ok = stop_cfg.val_freq < stop < n_iter
+        if not ok:
+            failures.append(f"graphed early stop {what}: stop_iter {stop}")
+        total = [a + b for a, b in zip(total, got[3])]
     return total
 
 
@@ -3011,10 +3155,11 @@ def _graph_members(ops, failures, card, grid):
             ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = train(graphed)
+            with _LoopCounts() as counts:
+                res = train(graphed)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            return (res, res.params, res.logs,
+            return (counts, res.params, res.logs,
                     (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches),
                     seconds)
         return run
@@ -3036,11 +3181,12 @@ def _graph_members(ops, failures, card, grid):
         member_steps = int(got[2].train_active.sum())
         rates = {k: statistics.median(member_steps / t for t in v)
                  for k, v in times.items()}
-        n = N_ITER_SWEEP
-        want = (0, 0) if name == "auto" else (n + n // base.val_freq, n)
-        if got[3] != want:
-            failures.append(f"graphed sweep ({name}): launches {got[3]}, "
-                            f"expected {want}")
+        _check_loop(f"{SWEEP_MEMBERS}-member sweep ({name})", got[0],
+                    got[2], cfg, failures,
+                    None if name == "auto" else got[3])
+        if name == "auto" and got[3] != (0, 0):
+            failures.append(f"graphed sweep (auto): launches {got[3]}, "
+                            f"expected none (plain in sweeps)")
         print(f"graphed sweep member-steps/s ({card}), use_pallas "
               f"{use_pallas!r}, median of 2 warm runs in turns: graphed "
               f"{rates[True]:.1f}, eager {rates[False]:.1f} "
@@ -3053,11 +3199,14 @@ def _graph_members(ops, failures, card, grid):
         f"(patience 1, n_mc_val 1, 10x lr)", sweep(stop_cfg), failures)
     stops = got[2].train_active.sum(dim=1)
     n_stopped = int((stops < stop_cfg.n_iter).sum())
+    _check_loop(f"{SWEEP_MEMBERS}-member sweep with early stops", got[0],
+                got[2], stop_cfg, failures, got[3])
     print(f"graphed sweep early stops: {n_stopped} of {SWEEP_MEMBERS} "
-          f"members stopped, at iterations "
+          f"members stopped, at {len(set(stops.tolist()))} iterations "
           f"{sorted(set(stops.tolist()))[:12]}")
-    if not 0 < n_stopped:
-        failures.append("graphed sweep: no member stopped early")
+    if not 0 < n_stopped or len(set(stops.tolist())) < 2:
+        failures.append("graphed sweep: members did not stop at different "
+                        "blocks")
     total = [a + b for a, b in zip(total, got[3])]
 
     remat_cfg = base.replace(use_pallas=True, remat_decode=True,
@@ -3065,11 +3214,8 @@ def _graph_members(ops, failures, card, grid):
     got, _ = _graph_pair(
         f"{SWEEP_MEMBERS}-member sweep with remat_decode, "
         f"{N_ITER_SWEEP_OPTIONS} steps", sweep(remat_cfg), failures)
-    n = N_ITER_SWEEP_OPTIONS
-    want = (2 * n + n // base.val_freq, n)
-    if got[3] != want:
-        failures.append(f"graphed remat sweep: launches {got[3]}, expected "
-                        f"{want}")
+    _check_loop(f"{SWEEP_MEMBERS}-member sweep with remat_decode", got[0],
+                got[2], remat_cfg, failures, got[3], forward_per_step=2)
     total = [a + b for a, b in zip(total, got[3])]
 
     p_cfg, p_case, p_lambdas, dtr, dva = grid
@@ -3080,20 +3226,13 @@ def _graph_members(ops, failures, card, grid):
             p_cfg.replace(use_pallas=True), p_case, p_lambdas, dtr, dva,
             seed=SEED, device="cuda", chunk_size=None, cuda_graph=graphed)),
         failures)
+    _check_loop(f"{len(p_lambdas)}-member P grid", got[0], got[2],
+                p_cfg, failures, got[3])
     total = [a + b for a, b in zip(total, got[3])]
 
-    _profile_member_graph(base.replace(use_pallas=True), case, lambdas)
+    run, gens = _member_run(base.replace(use_pallas=True), case, lambdas)
+    _profile_block(run, gens, f"{SWEEP_MEMBERS}-member damped_oscillator")
     return total
-
-
-def _profile_member_graph(cfg, case, lambdas):
-    """One replayed and one eager 66-member step under the profiler."""
-    run, gens = _member_run(cfg, case, lambdas)
-    _profile_graphed_steps(
-        run, gens, (lambda i: run.step(i, generators=gens),
-                    lambda i: run.validate(i, generators=gens)),
-        (lambda: run.step_body(gens), lambda: run.validate_body(gens)),
-        f"{len(lambdas)}-member damped_oscillator")
 
 
 def _graphs(ops, failures, card, setup, grid):

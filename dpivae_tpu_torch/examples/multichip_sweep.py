@@ -11,7 +11,10 @@ examples/multichip_sweep.py), in three parts:
 3. **Both at once**: a 2-D ("sweep", "dp") mesh, members over one axis
    and each member's batches over the other.
 
-Rank 0 prints each part's result and wall seconds.
+Rank 0 prints each part's result and wall seconds. On cards every part
+trains as a run without a mesh does, one CUDA graph replayed per
+validation block; in parts 2 and 3 the graph holds the "dp" axis's
+all-reduces.
 
 One process per device. On a node of cards, launch one rank per card:
 

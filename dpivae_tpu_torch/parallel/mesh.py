@@ -230,7 +230,11 @@ def _leaves(tree) -> list:
 
 def _coalesced_(tensors, collective) -> None:
     """Run ``collective`` on one flat buffer per dtype of ``tensors`` and
-    copy the result back into them, in place."""
+    copy the result back into them, in place. Under a CUDA graph's capture
+    (a training block, ``train/graph.py``) the flat buffer is allocated in
+    the graph's memory pool, at the same address on every replay, and the
+    concatenation, the collective and the copies back are all issued from
+    the capturing stream, so the graph records them in order."""
     by_dtype: Dict[torch.dtype, list] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
@@ -246,7 +250,12 @@ def _coalesced_(tensors, collective) -> None:
 
 def all_reduce_sum_(tensors, group) -> None:
     """Sum ``tensors`` over ``group``, in place, in one collective per
-    dtype."""
+    dtype. It may be captured into a CUDA graph (``_coalesced_``). In a
+    data-parallel training block it sums each step's gradients and log
+    components and each validation's components, so every rank reads the
+    same all-reduced validation loss: every rank's early stop agrees, and
+    every rank ends at the same block. A rank that ended earlier would
+    leave the others waiting in their next all-reduce."""
     _coalesced_(tensors, lambda flat: dist.all_reduce(flat, group=group))
 
 

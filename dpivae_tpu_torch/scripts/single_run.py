@@ -36,7 +36,9 @@ from the JAX program's at the same seed.
 It runs on the CUDA device unless --device says otherwise (--device cpu
 runs it on the CPU). --n_devices N above 1 trains data-parallel over a
 ("dp",) mesh of N ranks, one per device (``parallel.make_mesh``; NCCL
-between cards, gloo with --device cpu), launched by
+between cards, gloo with --device cpu); on cards each rank replays one
+CUDA graph per validation block with the gradients' all-reduces inside,
+as a run without a mesh replays its own. It is launched by
 
     python -m torch.distributed.run --standalone --nproc_per_node N \
         -m dpivae_tpu_torch.scripts.single_run --n_devices N ...

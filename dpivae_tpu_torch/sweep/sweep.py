@@ -32,7 +32,10 @@ logs are gathered over the axis and returned on every rank. A member's
 generator depends on its id and not on its rank, so a sharded sweep
 trains exactly the members of the unsharded one. A mesh that also has a
 "dp" axis of size above 1 makes each member's steps data-parallel over
-it (``train.train.MemberTrainer``). The evaluators split their members
+it (``train.train.MemberTrainer``). On CUDA every chunk's training
+replays one CUDA graph per validation block (``cuda_graph="auto"``,
+``train.train.build_member_train_fn``), with a mesh too: the block graph
+holds the "dp" axis's all-reduces. The evaluators split their members
 the same way and gather their outputs. A sharded sweep has no chunk
 files or chunk callback: ``checkpoint_dir`` and ``chunk_callback`` are
 refused with a mesh, as in the JAX package.
@@ -141,7 +144,8 @@ def _sharded_members(config, case, mesh, member_axis, lam, keys, device,
     """The members of a sharded sweep: this rank's slice (padded, or exact
     for ``data``) trained in chunks of ``chunk_size``, then every rank's
     gathered. With a "dp" axis of size above 1 each member's steps are
-    data-parallel over it."""
+    data-parallel over it, in the block graph ``cuda_graph`` resolves to
+    as without the axis."""
     n_members = lam.shape[0]
     share, n_padded = _member_share(mesh, member_axis, n_members)
     pick = lambda a: _pad_members(a, n_padded)[share]
@@ -315,11 +319,11 @@ def member_bytes(config: TrainConfig, case: Case) -> int:
     """Bytes one member needs at its peak, reckoned from the shapes: the
     validation pass (n_val x n_mc_val rows, no autograd graph) and the
     training step (n_batch x n_mc_train rows, its activations kept for the
-    backward, counted three times), both live at once (each is a CUDA
-    graph holding its own memory pool, replayed in turns), each row
-    holding the decoder outputs and hidden layers and the latents; plus
-    params, gradients, both Adam moments and two saved states for the
-    early stop."""
+    backward, counted three times), both live at once (both are in the
+    block's CUDA graph, whose memory pool holds them), each row holding
+    the decoder outputs and hidden layers and the latents; plus params,
+    gradients, both Adam moments and two saved states for the early
+    stop."""
     hidden = int(config.hidden_width or DECODER_X_HIDDEN)
     nz = case.nz_x + config.nz_c + config.nz_y
     per_row = 4 * (4 * case.nd_x + 3 * hidden + 8 * nz + case.nd_c
@@ -549,7 +553,8 @@ def _run_members(config: TrainConfig, case: Case, lambdas: np.ndarray,
     """The chunk runner: each member of a slice starts from its generator
     (data unless given, init), then all train at once (data-parallel over
     ``mesh``'s "dp" axis when given), each chunk capturing its own CUDA
-    graphs when ``cuda_graph`` resolves so (``build_member_train_fn``)."""
+    graph of a validation block when ``cuda_graph`` resolves so
+    (``build_member_train_fn``)."""
     template = make_template_model(config, case, device=device)
     train_fn = build_member_train_fn(config, case, mesh,
                                      cuda_graph=cuda_graph)
@@ -615,9 +620,9 @@ def train_sweep(
             logs_chunk)`` with CPU tensors for every completed chunk.
         gc_stale_chunks: with ``checkpoint_dir``, delete chunk files no
             registered sweep owns (``clean_checkpoint_dir``).
-        cuda_graph: "auto" (each chunk's steps and validations replay
-            CUDA graphs on CUDA), False (eager) or True
-            (``train.train.build_member_train_fn``).
+        cuda_graph: "auto" (each chunk replays a CUDA graph per
+            validation block on CUDA, with a mesh too), False (eager) or
+            True (``train.train.build_member_train_fn``).
 
     Returns:
         SweepResult ordered λ-major (member = i_lambda * n_runs + i_run).

@@ -1,23 +1,39 @@
 """CUDA-graph capture and replay of a training or an inference body
 (counterpart of the JAX package's compiled loop,
-dpivae_tpu/train/train.py:398-500: the inner scan over a block's steps and
-the outer scan over validation blocks, jitted once and cached by
-``get_train_fn``; and of its jitted sampling, which
+dpivae_tpu/train/train.py:398-500: the scan over validation blocks, jitted
+once and cached by ``get_train_fn``; and of its jitted sampling, which
 ``utils/graph_cache.py`` captures with this class).
 
 The card's counterpart of one XLA program is a CUDA graph: a body's
-launches (forward, backward, clip and Adam of a train step, or the whole
-validation pass) recorded once and replayed with one launch. ``Graphed``
-captures a body on a side stream, on its own memory pool or on one
-that several graphs share (``pool=``), after registering every CUDA ``torch.Generator`` the body draws from, so that
-each replay advances each generator as the eager body would (the default
-generator alone is registered by ``torch.cuda.graph`` itself). Replays
-then draw the same numbers an eager run would.
+launches (a whole validation block of training: ``val_freq`` train steps
+with their forward, backward, clip and Adam, the validation pass, the
+early-stop update and the block's ``pick``; or one sampling call)
+recorded once and replayed with one launch. ``Graphed`` captures a body
+on a side stream, on its own memory pool or on one that several graphs
+share (``pool=``), after registering every CUDA ``torch.Generator`` the
+body draws from, so that each replay advances each generator as the eager
+body would (the default generator alone is registered by
+``torch.cuda.graph`` itself). Replays then draw the same numbers an eager
+run would.
 
 A captured body reads nothing from the host, and every value that changes
-from call to call (the step index, the schedule row, Adam's step count)
-lives in a device tensor the body reads: a Python number is baked into the
-graph at capture.
+from call to call (the block and step index, the schedule row, Adam's
+step count, the early-stop state) lives in a device tensor the body
+reads: a Python number is baked into the graph at capture.
+
+A data-parallel block holds NCCL all-reduces (``parallel/mesh.py``
+``all_reduce_sum_``), and is captured all the same (NCCL >= 2.9.6 records
+its kernels into a graph). What ProcessGroupNCCL does with a collective
+enqueued under capture: the blocking ``dist.all_reduce`` (``async_op``
+False) makes the capturing stream wait on the collective's end, which
+the capture records as a dependency of the graph and which blocks no
+host thread; the collective's work object is not handed to the
+watchdog thread while the stream captures (it would query an event of
+the capture), and capture in ``thread_local`` mode keeps that thread's
+own CUDA calls from voiding it; the communicator is made by the first,
+eager, block, before any capture. A replay then runs the all-reduce
+with the rest of the block, on every rank, each rank replaying its own
+graph.
 
 The fused-MLP wrappers count their launches in Python
 (``fused_mlp.launches``, ``fused_mlp_hidden.launches``), which a replay
@@ -26,9 +42,7 @@ and adds it again on every replay, so the counts stay those of an eager
 run.
 
 ``resolve_cuda_graph`` resolves a ``cuda_graph`` argument, a trainer's
-or an inference call's: "auto" is True on CUDA without a mesh. With a mesh the step holds NCCL
-collectives, whose capture is not done here, so the data-parallel loop
-stays eager.
+or an inference call's: "auto" is True on CUDA, with or without a mesh.
 """
 
 from __future__ import annotations
@@ -44,18 +58,15 @@ _COUNTED = (_ops.fused_mlp, _ops.fused_mlp_hidden)
 
 def resolve_cuda_graph(cuda_graph, device: Optional[torch.device],
                        mesh=None) -> bool:
-    """``cuda_graph`` as a bool: "auto" is True on a CUDA device without a
-    mesh and False otherwise; True raises with a mesh or on another
-    device; False stays False. With a mesh ``device`` is not read."""
+    """``cuda_graph`` as a bool: "auto" is True on a CUDA device and False
+    otherwise; True raises on another device; False stays False. With a
+    ``mesh`` and no ``device`` the mesh's device is read (a trainer's
+    check at build time)."""
     if not (cuda_graph == "auto" or isinstance(cuda_graph, bool)):
         raise ValueError(f"cuda_graph must be True, False or 'auto', got "
                          f"{cuda_graph!r}")
-    if mesh is not None:
-        if cuda_graph is True:
-            raise ValueError("cuda_graph=True is not supported with mesh= "
-                             "(the step's collectives are not captured); "
-                             "pass cuda_graph='auto' or False")
-        return False
+    if device is None:
+        device = mesh.device
     if cuda_graph is True and device.type != "cuda":
         raise ValueError(f"cuda_graph=True needs a CUDA device, the call "
                          f"is on {device}")
@@ -99,9 +110,10 @@ class Graphed:
                     f"cuda_graph=False to draw from this one eagerly")
             self.graph.register_generator_state(g)
         before = _counts()
-        # thread_local: another thread's CUDA calls during the capture (an
+        # thread_local: another thread's CUDA calls during the capture (the
         # NCCL watchdog's, say) do not void it; the autograd engine's
-        # launches onto the capturing stream are captured all the same.
+        # launches onto the capturing stream, and NCCL's collectives joined
+        # to it, are captured all the same.
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
             self.out = body()

@@ -14,7 +14,7 @@ so an update reads no host value and can be captured in a CUDA graph
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -74,8 +74,36 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Adam:
                    else list(member.parameters()))
         param_groups.append(dict(params=tensors, lr=lr, weight_decay=wd))
     cuda = params.log_sigma_x.device.type == "cuda"
-    return torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8,
-                            fused=True, capturable=cuda)
+    optimizer = torch.optim.Adam(param_groups, betas=(0.9, 0.999), eps=1e-8,
+                                 fused=True, capturable=cuda)
+    _init_adam_state(optimizer)
+    return optimizer
+
+
+def _init_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Makes each param's Adam state now, as ``torch.optim.Adam``'s first
+    step would (zero moments, a zero step count on the param's device in
+    the fused update's dtype), so that a training block can copy and
+    restore it from the first block on (``train.train.Trainer``)."""
+    from torch.optim.optimizer import _get_scalar_dtype
+
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            optimizer.state[p].update(
+                step=torch.zeros((), dtype=_get_scalar_dtype(is_fused=True),
+                                 device=p.device),
+                exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                exp_avg_sq=torch.zeros_like(
+                    p, memory_format=torch.preserve_format))
+
+
+def adam_state_tensors(optimizer: torch.optim.Adam) -> List[torch.Tensor]:
+    """Every tensor an update of ``make_optimizer``'s Adam changes: each
+    param, its two moments and its step count."""
+    return [t for group in optimizer.param_groups for p in group["params"]
+            for t in (p, optimizer.state[p]["exp_avg"],
+                      optimizer.state[p]["exp_avg_sq"],
+                      optimizer.state[p]["step"])]
 
 
 def clip_grad_global_norm_(parameters: Iterable[torch.Tensor],
@@ -200,15 +228,20 @@ class MemberAdam:
         self.flat.addcdiv_(step, denom, value=-1.0)
 
     def state(self) -> Tuple[torch.Tensor, ...]:
-        """A copy of what an update changes: params and both moments."""
+        """A copy of what an update changes: params, both moments and the
+        shared step count."""
         return (self.flat.clone(), self.exp_avg.clone(),
-                self.exp_avg_sq.clone())
+                self.exp_avg_sq.clone(), self.t.clone())
 
     def restore(self, members: torch.Tensor, state) -> None:
         """Put ``state`` (from ``state()``) back for the members where the
-        (M,) bool ``members`` is True; the others keep theirs."""
-        keep = members.to(self.flat.device)[:, None]
+        (M,) bool device tensor ``members`` is True; the others keep
+        theirs. The step count, which the members share, is put back only
+        when every member's state is: a member kept at an earlier state is
+        one whose training has stopped, and it reads the count no more.
+        Reads no host value (it runs inside a training block's graph)."""
+        keep = members[:, None]
         for now, then in zip((self.flat, self.exp_avg, self.exp_avg_sq),
                              state):
-            now.copy_(torch.where(keep, then, now))
-
+            torch.where(keep, then, now, out=now)
+        torch.where(members.all(), state[3], self.t, out=self.t)

@@ -1,25 +1,45 @@
 """Training loop (counterpart of dpivae_tpu/train/train.py:49-113,161-477,
 526-596).
 
-The JAX package compiles the whole training into one program (a scan over
-validation blocks). Here the same loop runs from Python, in the same
-order: each block of ``val_freq`` iterations runs one train step, one
-validation of ``n_val`` points x ``n_mc_val`` samples under ``no_grad``,
-the early-stop update, then the other ``val_freq - 1`` steps. A stop that
-latches at a block's validation ends the run there, so the params returned
-are those right after that block's first step (the reference's ``break``);
-a partial last block stops at ``n_iter``.
+The JAX package compiles the whole training into one program, a scan over
+validation blocks. Here one block is one program: ``Trainer.block_body``
+(and ``MemberTrainer.block_body`` for the members of a sweep) is JAX's
+``block`` at the block index held in the device tensor ``block_t``. It
+runs the block's first train step, the validation of ``n_val`` points x
+``n_mc_val`` samples under ``no_grad`` with the early-stop update on
+device tensors (``utils/early_stopping.py``), a device copy of the params
+and of Adam's state (JAX's ``mid``), then the other ``val_freq - 1``
+steps, each masked by ``step < n_iter`` when ``n_iter`` is not a multiple
+of ``val_freq`` (JAX's ``masked_train_step``: one program serves the
+partial last block; the schedule index is clamped past ``n_iter``). Then
+JAX's ``pick``, with ``torch.where`` over every param and every Adam state
+tensor: a stop that latched at this block's validation keeps the state
+right after its first step (the reference's ``break``), a stop before the
+block keeps the block's entry state. The block writes its train rows and
+its validation row in place into the log tensors, NaN where not active,
+and keeps the stop block's index in a device tensor, from which the
+active masks and the stop iteration are formed at the end.
 
-Logs live in device tensors filled in place. The one host read per block
-is the validation loss the early-stop decision needs, so no step waits on
-the device by itself.
+The loop (``_run_blocks``) runs the first block eagerly and, on CUDA,
+captures ``block_body`` once as a CUDA graph and replays it for every
+later block (``cuda_graph="auto"``, ``train/graph.py``): one launch per
+block. ``cuda_graph=False`` and the CPU run the same body eagerly. The
+host reads one bool per block, the all-stopped flag, one block behind:
+block b's flag is copied to pinned memory without blocking, and the host
+waits for it only after it has launched block b+1. A stop found at block
+b therefore ends the loop after block b+1, whose ``pick`` keeps the
+stopped state. The lag is fixed, so a run does not depend on timing, and
+the generators end in the same state graphed or eager: they have drawn
+for every step of the stop block and of the block after it. The params
+and logs are those of a loop that breaks at the stop.
 
 ``Trainer`` holds one run's state and exposes the single train step, with
 a seam for tests: explicit ``batch_idx`` and ``noise`` in place of the
-generator. ``MemberTrainer`` and ``build_member_train_fn`` train M runs at
-once (the sweeps' engine, the counterpart of ``train_fn`` under
-``jax.vmap`` with per-run λ and ``hyper`` inputs), with the same loop and
-seam.
+generator (``step_body`` / ``validate_body`` at the index in ``step_t``).
+``MemberTrainer`` and ``build_member_train_fn`` train M runs at once (the
+sweeps' engine, the counterpart of ``train_fn`` under ``jax.vmap`` with
+per-run λ and ``hyper`` inputs), with the same block, the early stop per
+member.
 
 With a ``mesh`` (``parallel.make_mesh``) both are data-parallel over its
 ``dp_axis`` (counterpart of the JAX package's ``mesh=`` branch): every
@@ -29,29 +49,16 @@ contiguous rows of the batch and of the validation set, and sums the
 gradients and the log components over the axis in one collective per
 step, before the clip. Each component is a per-datum sum over a global
 divisor, so the sum of the ranks' is the global row, and the early stop
-reads the same number on every rank. ``use_pallas="auto"`` resolves on
-the global training shape, as in the JAX package.
+reads the same number on every rank: every rank's flag agrees and every
+rank ends at the same block. The block graph is captured with its NCCL
+all-reduces (``train/graph.py``), so a mesh replays it too.
+``use_pallas="auto"`` resolves on the global training shape, as in the
+JAX package.
 
 ``train_model(progress=...)`` narrates one line per validation block on
-stderr (``make_progress_printer``), at the block's host read.
+stderr (``make_progress_printer``), reading the block's rows on the host.
 
-On CUDA the loop is graphed (``cuda_graph="auto"``, ``train/graph.py``):
-the first block runs eagerly on a side stream (the real step 0,
-validation 0 and steps 1..vf-1, which also warms every lazy allocation and
-kernel attribute), then one train step and one validation pass are each
-captured into a CUDA graph and replayed in the loop's order, the step
-index written into a device tensor before each replay. A step replays
-forward, backward (with the fused-MLP kernels and ``remat_decode``'s
-recompute), clip and Adam in one launch; the members of a batched training
-replay ``vmap(grad(...))`` and ``MemberAdam`` the same way, and their
-early-stop freeze (``MemberAdam.state``/``restore``) stays outside the
-graphs, in place on the buffers the graphs read. The graphed loop gives
-the eager loop's results (``cuda_graph=False``). With a ``mesh`` the loop
-stays eager: its NCCL collectives are not captured.
-
-Not ported: scan unrolling, the executable cache, and the early-stop
-decision on the device (a whole block in one graph, as JAX's ``pick``
-does); the loop reads the validation loss once per block.
+Not ported: scan unrolling and the executable cache.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ from dpivae_tpu_torch.train.graph import (
 )
 from dpivae_tpu_torch.train.optim import (
     MemberAdam,
+    adam_state_tensors,
     clip_grad_global_norm_,
     make_optimizer,
 )
@@ -214,7 +222,82 @@ def _data_shard(config: TrainConfig, mesh: Optional[Mesh],
                       mesh.rows(dp_axis, config.n_val))
 
 
-class Trainer:
+class _Blocks:
+    """What ``Trainer`` and ``MemberTrainer`` share of a validation block:
+    the block index ``block_t``, the early-stop state ``es``, the log
+    tensors the block writes (``train_log`` of ``n_blocks * val_freq``
+    rows, the partial last block's dead rows past ``n_iter`` included,
+    and ``val_log``), and ``stop_block``, the block whose validation
+    latched the stop (``n_blocks`` while none has). ``lead`` is () for a
+    run and (M,) for members."""
+
+    def _init_blocks(self, lead):
+        cfg, device = self.config, self.device
+        n_iter, vf = cfg.n_iter, cfg.val_freq
+        self.n_blocks = n_blocks = -(-n_iter // vf)
+        self._partial = n_iter % vf != 0
+        self._rows = torch.arange(n_blocks * vf, device=device).reshape(
+            n_blocks, vf)
+        self.block_t = torch.zeros(1, dtype=torch.long, device=device)
+        self.es = early_stop_init(lead, device)
+        nan = lambda *shape: torch.full((*lead, *shape), float("nan"),
+                                        device=device)
+        self.train_log = nan(n_blocks * vf, len(TRAIN_COLUMNS))
+        self.val_log = nan(n_blocks, len(VAL_COLUMNS))
+        self.stop_block = torch.full(lead, n_blocks, dtype=torch.long,
+                                     device=device)
+
+    def _block_steps(self):
+        """(the schedule index of each of the block's steps, clamped to
+        ``n_iter - 1``; whether each is a step of the run; its log row)."""
+        rows = self._rows.index_select(0, self.block_t)[0]
+        return (rows.clamp(max=self.config.n_iter - 1),
+                rows < self.config.n_iter, rows)
+
+    def _early_stop(self, val_loss: torch.Tensor) -> None:
+        new = early_stop_update(self.es, val_loss, self.config.patience,
+                                self.config.min_delta)
+        for now, value in zip(self.es, new):
+            now.copy_(value)
+
+    def _log_block(self, rows, val_row, entry_stopped, live, log_rows):
+        """Writes the block's train rows (a list of ``val_freq`` rows) and
+        its validation row into the logs, NaN where not active: the first
+        step and the validation when the run was live at the block's
+        entry, the later steps while it is live after the validation and
+        the step is one of the run's. Notes a stop latched here."""
+        first = ~entry_stopped
+        rest = (~self.es.stopped)[..., None] & live[1:]
+        active = torch.cat([first[..., None], rest], dim=-1)
+        rows = torch.where(active[..., None], torch.stack(rows, dim=-2),
+                           float("nan"))
+        self.train_log.index_copy_(rows.dim() - 2, log_rows, rows)
+        val_row = torch.where(first[..., None], val_row, float("nan"))
+        self.val_log.index_copy_(val_row.dim() - 1, self.block_t,
+                                 val_row.unsqueeze(-2))
+        torch.where(self.es.stopped & first, self.block_t[0],
+                    self.stop_block, out=self.stop_block)
+
+    def logs(self) -> TrainLogs:
+        """The run's ``TrainLogs``, from the written rows and
+        ``stop_block``."""
+        n_iter, vf, device = self.config.n_iter, self.config.val_freq, \
+            self.device
+        stop = self.stop_block[..., None]
+        stop_iter = torch.where(stop < self.n_blocks, stop * vf + 1, n_iter)
+        blocks = torch.arange(self.n_blocks, device=device)
+        val_iters = blocks * vf
+        return TrainLogs(
+            train=self.train_log[..., :n_iter, :].contiguous(),
+            val=self.val_log,
+            train_active=torch.arange(n_iter, device=device) < stop_iter,
+            val_active=blocks <= stop,
+            val_iters=val_iters.expand(*self.stop_block.shape,
+                                       -1).contiguous(),
+        )
+
+
+class Trainer(_Blocks):
     """One training run: the model with scalers fitted on ``data_train``,
     the grouped Adam over ``params`` (updated in place), the data on the
     params' device, and the annealing schedules evaluated for every step.
@@ -224,8 +307,10 @@ class Trainer:
 
     ``step(i)`` and ``validate(i)`` write ``i`` into the device tensor
     ``step_t`` and run ``step_body`` / ``validate_body``, which read the
-    schedule row through it and no host value: those are the bodies a CUDA
-    graph captures (``build_train_fn``)."""
+    schedule row through it and no host value. ``block_body`` runs one
+    validation block (module docstring) built of those two bodies at the
+    block index in ``block_t``: the body a CUDA graph captures
+    (``build_train_fn``)."""
 
     def __init__(self, config: TrainConfig, case: Case, params: DPIVAEParams,
                  data_train, data_val, lambda_g0: float,
@@ -262,6 +347,14 @@ class Trainer:
         self.schedule = torch.tensor(rows, dtype=torch.float32).reshape(-1, 4)
         self._schedule_dev = self.schedule.to(device)
         self.step_t = torch.zeros(1, dtype=torch.long, device=device)
+        self._init_blocks(())
+        # What a step changes, and the block's copies of it: at its entry,
+        # after its validation (JAX's mid), and before each step of a
+        # partial block.
+        self._state = adam_state_tensors(self.optimizer)
+        blank = lambda: [torch.empty_like(t) for t in self._state]
+        self._entry, self._mid = blank(), blank()
+        self._prev = blank() if self._partial else None
 
     def _schedule_row(self) -> torch.Tensor:
         """The (4,) schedule row of the step in ``step_t``, on the device."""
@@ -337,6 +430,40 @@ class Trainer:
             all_reduce_sum_([comps], self.shard.group)
         return comps
 
+    def block_body(self, generator=None) -> torch.Tensor:
+        """One validation block (module docstring) at the index in
+        ``block_t``, drawing from ``generator`` (JAX's ``block``,
+        dpivae_tpu/train/train.py:398-441); returns the 0-dim bool device
+        tensor ``es.stopped`` after it."""
+        steps, live, log_rows = self._block_steps()
+        state = self._state
+        with torch.no_grad():
+            torch._foreach_copy_(self._entry, state)
+            entry_stopped = self.es.stopped.clone()
+        self.step_t.copy_(steps[:1])
+        rows = [self.step_body(generator)]
+        val_row = self.validate_body(generator)
+        with torch.no_grad():
+            self._early_stop(val_row[0])
+            stopped_here = self.es.stopped & ~entry_stopped
+            torch._foreach_copy_(self._mid, state)
+        for j in range(1, self.config.val_freq):
+            self.step_t.copy_(steps[j:j + 1])
+            if self._partial:
+                with torch.no_grad():
+                    torch._foreach_copy_(self._prev, state)
+            rows.append(self.step_body(generator))
+            if self._partial:
+                with torch.no_grad():
+                    for now, then in zip(state, self._prev):
+                        torch.where(live[j], now, then, out=now)
+        with torch.no_grad():
+            for now, mid, entry in zip(state, self._mid, self._entry):
+                torch.where(stopped_here, mid, now, out=now)
+                torch.where(entry_stopped, entry, now, out=now)
+        self._log_block(rows, val_row, entry_stopped, live, log_rows)
+        return self.es.stopped
+
     def _local_noise(self, noise, generator, n_mc: int, n_rows: int,
                      rows: slice) -> dict:
         """This rank's rows of the global encoder normals: ``noise``'s, or
@@ -347,27 +474,54 @@ class Trainer:
         return {"z": eps[:, rows]}
 
 
-def _graphed_calls(run, generators, stream, step_body, validate_body):
-    """``(step(i), validate(i))`` for the loop, each writing ``i`` into
-    ``run.step_t`` and replaying a CUDA graph of ``step_body`` /
-    ``validate_body`` (``train/graph.py``), captured here on ``stream``,
-    each on its own memory pool (the two replay interleaved). Both
-    bodies must have run eagerly on ``stream`` before."""
+class _LaggedFlag:
+    """A block's all-stopped flag, read on the host one block behind:
+    ``record(b, flag)`` copies block b's flag into pinned host memory
+    without blocking and records an event after the copy; ``read(b)``
+    waits on that event, which the loop calls only after it has launched
+    block b+1. Two slots, so block b+1's copy does not overwrite the one
+    being read. On the CPU the copy is done when ``record`` returns."""
 
-    def replayer(graph):
-        def call(i):
-            run.step_t.fill_(i)
-            return graph.replay()
-        return call
+    def __init__(self, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(2, dtype=torch.bool, pin_memory=cuda)
+        self.events = [torch.cuda.Event() for _ in range(2)] if cuda else None
 
-    return tuple(replayer(Graphed(body, generators, stream))
-                 for body in (step_body, validate_body))
+    def record(self, block: int, flag: torch.Tensor) -> None:
+        self.host[block % 2].copy_(flag.all(), non_blocking=True)
+        if self.events is not None:
+            self.events[block % 2].record()
+
+    def read(self, block: int) -> bool:
+        if self.events is not None:
+            self.events[block % 2].synchronize()
+        return bool(self.host[block % 2])
 
 
-def _loop_stream(graphed: bool, device: torch.device):
-    """The context a loop runs in: a ``SideStream`` when it is graphed,
-    else nothing."""
-    return SideStream(device) if graphed else contextlib.nullcontext()
+def _run_blocks(run, body, generators, graphed: bool, after_block=None):
+    """The loop of both train functions over ``run``'s blocks (a
+    ``Trainer`` or a ``MemberTrainer``): block 0 runs ``body`` eagerly,
+    which is the warm-up a capture needs (lazy allocations, the kernels'
+    first-launch attributes, the NCCL communicator of a mesh). When
+    ``graphed``, ``body`` is then captured once on the loop's side stream
+    (drawing from ``generators``) and replayed for every later block;
+    else it runs eagerly for each. Ends one block after the block whose
+    flag says every run has stopped (``_LaggedFlag``), or after the last.
+    ``after_block(b)`` runs on the host after block b is launched."""
+    device = run.device
+    flag = _LaggedFlag(device)
+    call = body
+    with (SideStream(device) if graphed
+          else contextlib.nullcontext()) as stream:
+        for block in range(run.n_blocks):
+            if graphed and block == 1:
+                call = Graphed(body, generators, stream).replay
+            run.block_t.fill_(block)
+            flag.record(block, call())
+            if after_block is not None:
+                after_block(block)
+            if block > 0 and flag.read(block - 1):
+                break
 
 
 def build_train_fn(config: TrainConfig, case: Case,
@@ -386,67 +540,45 @@ def build_train_fn(config: TrainConfig, case: Case,
     first rank before the first step. ``progress``: True prints
     ``make_progress_printer``'s line per validation block; a callable gets
     ``(iter, train_row, val_row, es_counter, active)``, the rows as numpy,
-    at the block's host read (not with a mesh). ``cuda_graph``
-    (``train.graph.resolve_cuda_graph``): "auto" replays CUDA graphs of
-    the step and the validation after an eager first block on CUDA
-    without a mesh (module docstring), False runs every step eagerly,
-    True insists on graphs (and raises on the CPU or with a mesh);
-    ``generator`` must then be a CUDA generator.
+    read on the host after each block (not with a mesh); ``active`` is
+    False for the block after a stop, which the printer does not narrate.
+    ``cuda_graph`` (``train.graph.resolve_cuda_graph``): "auto" replays a
+    CUDA graph of the validation block after an eager first block on CUDA,
+    with or without a mesh (module docstring), False runs every block
+    eagerly, True insists on the graph (and raises on the CPU);
+    ``generator`` must then be a CUDA generator. The loop ends one block
+    after the stop (module docstring).
     """
-    if mesh is not None:
-        resolve_cuda_graph(cuda_graph, None, mesh)
     if progress and mesh is not None:
         raise ValueError(
             "progress narration is not supported with mesh= (JAX rejects "
             "ordered debug callbacks in multi-device programs); pass "
             "progress=False or drop the mesh")
-    _data_shard(config, mesh, dp_axis)
-    n_iter, vf = config.n_iter, config.val_freq
-    n_blocks = -(-n_iter // vf)
-    progress_cb = (make_progress_printer(n_iter, vf) if progress is True
-                   else (progress or None))
+    if _data_shard(config, mesh, dp_axis) is not None:
+        resolve_cuda_graph(cuda_graph, None, mesh)
+    vf = config.val_freq
+    progress_cb = (make_progress_printer(config.n_iter, vf)
+                   if progress is True else (progress or None))
 
     def train_fn(params, generator, data_train, data_val, lambda_g0):
         params = copy.deepcopy(params)
-        device = params.log_sigma_x.device
-        graphed = resolve_cuda_graph(cuda_graph, device, mesh)
+        graphed = resolve_cuda_graph(cuda_graph, params.log_sigma_x.device)
         if mesh is not None:
             replicated(mesh, params, dp_axis)
         run = Trainer(config, case, params, data_train, data_val, lambda_g0,
                       mesh, dp_axis)
-        nan = lambda *shape: torch.full(shape, float("nan"), device=device)
-        train, val = nan(n_iter, len(TRAIN_COLUMNS)), nan(n_blocks,
-                                                          len(VAL_COLUMNS))
-        es = early_stop_init()
-        stop_iter, live_blocks = n_iter, n_blocks
-        step = lambda i: run.step(i, generator=generator)
-        validate = lambda i: run.validate(i, generator=generator)
-        with _loop_stream(graphed, device) as stream:
-            for block in range(n_blocks):
-                if graphed and block == 1:
-                    step, validate = _graphed_calls(
-                        run, [generator], stream,
-                        lambda: run.step_body(generator),
-                        lambda: run.validate_body(generator))
+        report = None
+        if progress_cb is not None:
+            def report(block):
                 start = block * vf
-                train[start] = step(start)
-                val[block] = validate(start)
-                es = early_stop_update(es, float(val[block, 0]),
-                                       config.patience, config.min_delta)
-                if progress_cb is not None:
-                    progress_cb(start, train[start].cpu().numpy(),
-                                val[block].cpu().numpy(), es.counter, True)
-                if es.stopped:
-                    stop_iter, live_blocks = start + 1, block + 1
-                    break
-                for i in range(start + 1, min(start + vf, n_iter)):
-                    train[i] = step(i)
-        steps = torch.arange(n_iter, device=device)
-        blocks = torch.arange(n_blocks, device=device)
-        return params, TrainLogs(
-            train=train, val=val, train_active=steps < stop_iter,
-            val_active=blocks < live_blocks, val_iters=blocks * vf,
-        )
+                progress_cb(start, run.train_log[start].cpu().numpy(),
+                            run.val_log[block].cpu().numpy(),
+                            int(run.es.counter),
+                            int(run.stop_block) >= block)
+
+        _run_blocks(run, lambda: run.block_body(generator), [generator],
+                    graphed, report)
+        return params, run.logs()
 
     return train_fn
 
@@ -467,8 +599,8 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
     same arguments and gets the same result. ``progress`` narrates each
     validation block (``build_train_fn``); "auto" (``resolve_progress``)
     only on the CPU at ``n_iter`` >= 5000 without a mesh. ``cuda_graph``
-    (``build_train_fn``): "auto" replays CUDA graphs on CUDA without a
-    mesh. Returns (trained params, logs).
+    (``build_train_fn``): "auto" replays a CUDA graph per validation block
+    on CUDA, with a mesh too. Returns (trained params, logs).
     """
     device = resolve_device(device)
     if mesh is not None:
@@ -567,7 +699,7 @@ def stack_params(params) -> dict:
             for k in states[0]}
 
 
-class MemberTrainer:
+class MemberTrainer(_Blocks):
     """M runs trained at once, each with its own data, params, λ and
     (optionally) hyperparameters: the single-run ``Trainer`` under
     ``torch.func.vmap``. The model code stays single-member: each step is
@@ -591,8 +723,10 @@ class MemberTrainer:
             outside ``vmap``, before the per-member clip.
 
     As in ``Trainer``, ``grads``/``step``/``validate`` write the step index
-    into ``step_t``, and ``step_body``/``validate_body`` read it: the
-    bodies a CUDA graph captures, drawing from the members' generators.
+    into ``step_t``, and ``step_body``/``validate_body`` read it;
+    ``block_body`` runs a validation block of every member at the index
+    in ``block_t``, the early stop per member: the body a CUDA graph
+    captures, drawing from the members' generators.
     """
 
     def __init__(self, config: TrainConfig, case: Case, params: dict,
@@ -649,6 +783,7 @@ class MemberTrainer:
                          * torch.from_numpy(shape)[None]).float().to(device)
         self.step_t = torch.zeros(1, dtype=torch.long, device=device)
         self._members = torch.arange(m, device=device)[:, None]
+        self._init_blocks((m,))
 
         def divisors(n_points):
             denom = n_points * (case.nd_x + case.nd_y + case.nd_c)
@@ -763,6 +898,34 @@ class MemberTrainer:
         return comps
 
 
+    def block_body(self, generators=None) -> torch.Tensor:
+        """``Trainer.block_body`` over the members, the entry, mid and
+        pre-step states kept and put back per member by
+        ``MemberAdam.state`` / ``restore`` on device masks (JAX's
+        ``block`` under ``jax.vmap``); returns the (M,) bool device tensor
+        ``es.stopped`` after it."""
+        steps, live, log_rows = self._block_steps()
+        opt = self.optimizer
+        entry = opt.state()
+        entry_stopped = self.es.stopped.clone()
+        self.step_t.copy_(steps[:1])
+        rows = [self.step_body(generators)]
+        val_row = self.validate_body(generators)
+        self._early_stop(val_row[:, 0])
+        stopped_here = self.es.stopped & ~entry_stopped
+        mid = opt.state()
+        for j in range(1, self.config.val_freq):
+            self.step_t.copy_(steps[j:j + 1])
+            prev = opt.state() if self._partial else None
+            rows.append(self.step_body(generators))
+            if prev is not None:
+                opt.restore((~live[j]).expand(self.n_members), prev)
+        opt.restore(stopped_here, mid)
+        opt.restore(entry_stopped, entry)
+        self._log_block(rows, val_row, entry_stopped, live, log_rows)
+        return self.es.stopped
+
+
 def build_member_train_fn(config: TrainConfig, case: Case,
                           mesh: Optional[Mesh] = None, dp_axis: str = "dp",
                           cuda_graph="auto"):
@@ -776,80 +939,30 @@ def build_member_train_fn(config: TrainConfig, case: Case,
     package (dpivae_tpu/train/train.py:398-441): a member whose stop
     latches at a block's validation keeps its state right after that
     block's first step (the single run's break point), and a member
-    stopped before a block keeps its state through it, both restored with
-    ``torch.where`` on params and Adam moments; their rows past the stop
-    are NaN and inactive. The (M,) validation losses are read once per
-    block, and the loop ends early only when every member has stopped.
-    With ``mesh``, each member's steps are data-parallel over ``dp_axis``
-    (``MemberTrainer``). ``cuda_graph`` as in ``build_train_fn``: the
-    graphs draw from the M ``generators``, which must then be CUDA ones.
+    stopped before a block keeps its state through it, both put back on
+    the device inside the block (``MemberTrainer.block_body``); their rows
+    past the stop are NaN and inactive. The loop ends one block after the
+    block at which every member has stopped (``_run_blocks``), and reads
+    nothing per member. With ``mesh``, each member's steps are
+    data-parallel over ``dp_axis`` (``MemberTrainer``). ``cuda_graph`` as
+    in ``build_train_fn``: the block graph draws from the M
+    ``generators``, which must then be CUDA ones.
     """
-    if mesh is not None:
-        resolve_cuda_graph(cuda_graph, None, mesh)
     config = member_config(config)
-    _data_shard(config, mesh, dp_axis)
-    n_iter, vf = config.n_iter, config.val_freq
-    n_blocks = -(-n_iter // vf)
+    if _data_shard(config, mesh, dp_axis) is not None:
+        resolve_cuda_graph(cuda_graph, None, mesh)
 
     def train_fn(params, generators, data_train, data_val, lambdas,
                  hyper=None):
         run = MemberTrainer(config, case, params, data_train, data_val,
                             lambdas, hyper, mesh, dp_axis)
-        m, device = run.n_members, run.device
-        if len(generators) != m:
-            raise ValueError(f"{len(generators)} generators for {m} members")
-        graphed = resolve_cuda_graph(cuda_graph, device, mesh)
-        nan = lambda *shape: torch.full(shape, float("nan"), device=device)
-        train = nan(m, n_iter, len(TRAIN_COLUMNS))
-        val = nan(m, n_blocks, len(VAL_COLUMNS))
-        es = [early_stop_init() for _ in range(m)]
-        stop_iter = np.full(m, n_iter)
-        live_blocks = np.full(m, n_blocks)
-        step = lambda i: run.step(i, generators=generators)
-        validate = lambda i: run.validate(i, generators=generators)
-        with _loop_stream(graphed, device) as stream:
-            for block in range(n_blocks):
-                entry_stopped = np.array([s.stopped for s in es])
-                if entry_stopped.all():
-                    break
-                if graphed and block == 1:
-                    step, validate = _graphed_calls(
-                        run, generators, stream,
-                        lambda: run.step_body(generators),
-                        lambda: run.validate_body(generators))
-                entry = run.optimizer.state() if entry_stopped.any() else None
-                start = block * vf
-                train[:, start] = step(start)
-                val[:, block] = validate(start)
-                losses = val[:, block, 0].cpu().numpy()
-                es = [early_stop_update(s, v, config.patience,
-                                        config.min_delta)
-                      for s, v in zip(es, losses)]
-                stopped_here = (np.array([s.stopped for s in es])
-                                & ~entry_stopped)
-                mid = run.optimizer.state() if stopped_here.any() else None
-                for i in range(start + 1, min(start + vf, n_iter)):
-                    train[:, i] = step(i)
-                if mid is not None:
-                    run.optimizer.restore(torch.from_numpy(stopped_here), mid)
-                    stop_iter[stopped_here] = start + 1
-                    live_blocks[stopped_here] = block + 1
-                if entry is not None:
-                    run.optimizer.restore(torch.from_numpy(entry_stopped),
-                                          entry)
-        steps = torch.arange(n_iter, device=device)
-        blocks = torch.arange(n_blocks, device=device)
-        train_active = steps[None] < torch.as_tensor(stop_iter,
-                                                     device=device)[:, None]
-        val_active = blocks[None] < torch.as_tensor(live_blocks,
-                                                    device=device)[:, None]
-        train[~train_active] = float("nan")
-        val[~val_active] = float("nan")
+        if len(generators) != run.n_members:
+            raise ValueError(f"{len(generators)} generators for "
+                             f"{run.n_members} members")
+        graphed = resolve_cuda_graph(cuda_graph, run.device)
+        _run_blocks(run, lambda: run.block_body(generators), generators,
+                    graphed)
         params_out = {k: v.detach().clone() for k, v in run.params.items()}
-        return params_out, TrainLogs(
-            train=train, val=val, train_active=train_active,
-            val_active=val_active,
-            val_iters=(blocks * vf)[None].expand(m, -1).clone(),
-        )
+        return params_out, run.logs()
 
     return train_fn

@@ -75,13 +75,22 @@ def _sweep_config(case_name, preset):
         n_mc_test=4, n_iter=20, val_freq=10, use_seed=True)
 
 
-def _dp_run(mesh=None):
-    """train_model at the dp sizes: data and init from seeded CPU
-    generators, the same on every rank."""
+# An early stop at the dp sizes: a cyclical β_x (4 cycles, half of each a
+# ramp) lifts the validation loss when β_x is back at 1, and patience 1
+# with no dead zone latches the stop at block 5 of 8 (the loss rises from
+# 1.016 to 1.046, a 3 % margin), so the loop ends after block 6.
+DP_STOP = dict(n_iter=80, patience=1, min_delta=0.0,
+               beta_x_annealing="cyclical", beta_x_n_cycles=4, beta_x_R=0.5)
+
+
+def _dp_run(mesh=None, **over):
+    """train_model at the dp sizes (with ``over`` in the config): data and
+    init from seeded CPU generators, the same on every rank."""
     from dpivae_tpu_torch.train import init_params, setup_model, train_model
     from dpivae_tpu_torch.utils.data import sample_response
 
     case, cfg = _dp_config()
+    cfg = cfg.replace(**over)
     gen = torch.Generator().manual_seed(0)
     dtr = sample_response(case, gen, cfg.n_train, sample_dist=case.gt_dist(),
                           device="cpu")
@@ -149,9 +158,12 @@ def _task_two_ranks(mesh_of, inputs, rank) -> dict:
     out.update({f"step:{k}": v.numpy()
                 for k, v in params.state_dict().items()})
 
-    params, logs = _dp_run(mesh)
-    out.update({f"dp:p:{k}": v.numpy() for k, v in params.state_dict().items()})
-    out.update({f"dp:log:{f}": getattr(logs, f).numpy() for f in LOG_FIELDS})
+    for prefix, over in (("dp:", {}), ("dps:", DP_STOP)):
+        params, logs = _dp_run(mesh, **over)
+        out.update({f"{prefix}p:{k}": v.numpy()
+                    for k, v in params.state_dict().items()})
+        out.update({f"{prefix}log:{f}": getattr(logs, f).numpy()
+                    for f in LOG_FIELDS})
 
     mesh = mesh_of(("sweep",), None)
     results = {}
@@ -175,11 +187,12 @@ def _task_two_ranks(mesh_of, inputs, rank) -> dict:
     out["y_mesh"] = predict(mesh).numpy()
     if rank == 0:
         out["y_ref"] = predict(None).numpy()
-        params, logs = _dp_run()
-        out.update({f"ref:dp:p:{k}": v.numpy()
-                    for k, v in params.state_dict().items()})
-        out.update({f"ref:dp:log:{f}": getattr(logs, f).numpy()
-                    for f in LOG_FIELDS})
+        for prefix, over in (("dp:", {}), ("dps:", DP_STOP)):
+            params, logs = _dp_run(**over)
+            out.update({f"ref:{prefix}p:{k}": v.numpy()
+                        for k, v in params.state_dict().items()})
+            out.update({f"ref:{prefix}log:{f}": getattr(logs, f).numpy()
+                        for f in LOG_FIELDS})
         for case_name, preset in SWEEP_CASES:
             out.update(_sweep_arrays(f"ref:{case_name}:", _sweep_run(
                 case_name, preset, [1 / 256, -1.0, 0.5])))
@@ -345,6 +358,23 @@ def test_dp_train_model_equals_unsharded(two_ranks):
         if key.startswith("ref:dp:p:"):
             for r in ranks:
                 _close(r[key[4:]], want, key, **DP_PARAM)
+
+
+def test_dp_early_stop_equals_unsharded(two_ranks):
+    """An early stop over the 2-rank "dp" mesh: both ranks read the same
+    all-reduced validation loss, so both stop at the same block and end
+    the loop at the same block after it, with logs and params equal bit
+    for bit between them and to the unsharded run's within the dp run's
+    bounds, its stop included."""
+    ranks = two_ranks["ranks"]
+    for key, value in ranks[0].items():
+        if key.startswith("dps:"):
+            np.testing.assert_array_equal(ranks[1][key], value, key)
+    assert ranks[0]["dps:log:train_active"].sum() == 5 * 10 + 1
+    _close_logs(ranks, "dps:", **DP_LOG)
+    for key, want in ranks[0].items():
+        if key.startswith("ref:dps:p:"):
+            _close(ranks[0][key[4:]], want, key, **DP_PARAM)
 
 
 def test_one_rank_mesh_equals_unsharded():

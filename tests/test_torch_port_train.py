@@ -219,12 +219,14 @@ def test_early_stop_update_matches_jax():
     ours, theirs = es.early_stop_init(), jax_es.early_stop_init()
     seen = []
     for v in vals:
-        ours = es.early_stop_update(ours, v, patience, min_delta)
+        ours = es.early_stop_update(ours, torch.tensor(v), patience,
+                                    min_delta)
         theirs = jax_es.early_stop_update(theirs, v, patience, min_delta)
         assert float(ours.best) == float(theirs.best)
-        assert ours.counter == int(theirs.counter)
-        assert ours.stopped == bool(theirs.stopped)
-        seen.append((float(ours.best), ours.counter, ours.stopped))
+        assert int(ours.counter) == int(theirs.counter)
+        assert bool(ours.stopped) == bool(theirs.stopped)
+        seen.append((float(ours.best), int(ours.counter),
+                     bool(ours.stopped)))
     # 3.95 is the dead zone; 3.05 then 3.1 are worse and stop at patience 2;
     # 2.0 would improve but the stop has latched.
     assert seen[2] == (4.0, 0, False)

@@ -71,15 +71,16 @@ def _single_run(cfg, key):
 
 
 def _count_steps(monkeypatch):
-    """Count MemberTrainer.step calls: the batched training steps."""
+    """Count MemberTrainer.step_body calls: the batched training steps
+    (each block runs its steps through it)."""
     calls = [0]
-    step = train_mod.MemberTrainer.step
+    step = train_mod.MemberTrainer.step_body
 
     def counted(self, *args, **kwargs):
         calls[0] += 1
         return step(self, *args, **kwargs)
 
-    monkeypatch.setattr(train_mod.MemberTrainer, "step", counted)
+    monkeypatch.setattr(train_mod.MemberTrainer, "step_body", counted)
     return calls
 
 

@@ -12,11 +12,14 @@ schedules (sigmoid λ, cyclical β_x) so that a baked row would show, and
 their rows must equal the Python-index path's: the schedule row read on
 the host and handed to the loss as Python floats. Both models: S
 (simple_beam / "dpivae") and P with a physical covariate (bridge /
-"DPIVAE-A"). The graphed loop's order (an eager first block, then the
-captured bodies replayed) is checked against the eager loop with
-stand-in graphs that run their bodies eagerly. Small sizes: batch 16, 4
-MC samples. The graph-against-eager comparison
-itself needs the card (tests/test_torch_train_graph_cuda.py).
+"DPIVAE-A"). The validation block built of those bodies runs under the
+same guard in tests/test_torch_train_block.py. The graphed loop's order
+(an eager first block, then the block body captured once and replayed
+for every later block, the one after a stop included) is checked
+against the eager loop with stand-in graphs that run their bodies
+eagerly: the same rows, params and generator state. Small sizes: batch
+16, 4 MC samples. The graph-against-eager comparison itself needs the
+card (tests/test_torch_train_graph_cuda.py).
 """
 
 import contextlib
@@ -38,7 +41,6 @@ from dpivae_tpu_torch.train.train import (
     Trainer,
     _sample_batch,
     build_member_train_fn,
-    build_train_fn,
     member_generators,
     stack_params,
 )
@@ -92,29 +94,34 @@ _MESH = types.SimpleNamespace(device=torch.device("cpu"))
 @pytest.mark.parametrize("cuda_graph, device, mesh, want", [
     ("auto", "cpu", None, False),
     ("auto", "cuda", None, True),
-    ("auto", "cuda", _MESH, False),
+    ("auto", "cuda", _MESH, True),
     ("auto", "cpu", _MESH, False),
     (False, "cuda", None, False),
     (False, "cpu", _MESH, False),
     (True, "cuda", None, True),
+    (True, "cuda", _MESH, True),
+    ("auto", None, _MESH, False),
 ])
 def test_cuda_graph_resolves(cuda_graph, device, mesh, want):
-    assert resolve_cuda_graph(cuda_graph, torch.device(device), mesh) is want
+    """A mesh graphs as a run without one does; with no device given (a
+    trainer's check when it is built) the mesh's device is read."""
+    device = None if device is None else torch.device(device)
+    assert resolve_cuda_graph(cuda_graph, device, mesh) is want
 
 
 @pytest.mark.parametrize("cuda_graph, device, mesh, match", [
     (True, "cpu", None, "needs a CUDA device"),
-    (True, "cuda", _MESH, "not supported with mesh"),
+    (True, None, _MESH, "needs a CUDA device"),
     ("yes", "cuda", None, "must be True, False or 'auto'"),
 ])
 def test_cuda_graph_refuses(cuda_graph, device, mesh, match):
+    device = None if device is None else torch.device(device)
     with pytest.raises(ValueError, match=match):
-        resolve_cuda_graph(cuda_graph, torch.device(device), mesh)
+        resolve_cuda_graph(cuda_graph, device, mesh)
 
 
 def test_cuda_graph_true_raises_on_the_cpu_and_with_a_mesh():
-    """True raises in every trainer that takes it: on CPU params, and with
-    a mesh when the trainer is built."""
+    """True raises in every trainer that takes it on CPU params."""
     cfg = _cfg(n_iter=2)
     data_train, data_val = _data(cfg)
     model = setup_model(cfg, CASE, data_train, device="cpu")
@@ -128,9 +135,6 @@ def test_cuda_graph_true_raises_on_the_cpu_and_with_a_mesh():
     with pytest.raises(ValueError, match="needs a CUDA device"):
         fn(params, gens, stack(data_train), stack(data_val),
            torch.tensor([0.0, 0.1]))
-    for build in (build_train_fn, build_member_train_fn):
-        with pytest.raises(ValueError):
-            build(cfg, CASE, mesh=_MESH, cuda_graph=True)
 
 
 # ----------------------------------------------------------------------
@@ -344,8 +348,8 @@ def test_member_adam_matches_torch_adam_per_member():
 
 class _EagerGraph:
     """Stands in for ``train.graph.Graphed`` on the CPU: "replays" call
-    the body, so the graphed loop's order (eager first block, then the
-    bodies at the index in ``step_t``) runs without a card."""
+    the body, so the graphed loop's order (an eager first block, then the
+    block body at the index in ``block_t``) runs without a card."""
 
     made = []
 
@@ -369,6 +373,16 @@ def eager_graphs(monkeypatch):
     return train_mod
 
 
+def _blocks_run(logs, cfg):
+    """The blocks the loop launched: every block, or the stop block and
+    the one after it (the host reads the stop one block behind)."""
+    n_blocks = -(-cfg.n_iter // cfg.val_freq)
+    live = logs.val_active.reshape(-1, n_blocks).sum(dim=1)
+    if bool((live == n_blocks).any()):
+        return n_blocks
+    return min(int(live.max()) + 1, n_blocks)
+
+
 @pytest.mark.parametrize("over", [
     dict(n_iter=55),
     dict(n_iter=8),
@@ -377,8 +391,9 @@ def eager_graphs(monkeypatch):
 ], ids=["partial-block", "one-block", "early-stop"])
 def test_graphed_loop_order_equals_eager(eager_graphs, monkeypatch, over):
     """The single run's graphed loop (replays run eagerly here) gives the
-    eager loop's rows, params and stop: step and validation captured once
-    each after block 0, replayed for every later step and validation."""
+    eager loop's rows, params and stop: the block body captured once
+    after block 0, replayed for every later block, the block after the
+    stop included."""
     cfg = _cfg(**over)
     data_train, data_val = _data(cfg)
     model = setup_model(cfg, CASE, data_train, device="cpu")
@@ -387,31 +402,34 @@ def test_graphed_loop_order_equals_eager(eager_graphs, monkeypatch, over):
     def run(graphed):
         monkeypatch.setattr(eager_graphs, "resolve_cuda_graph",
                             lambda *a: graphed)
-        return train_model(cfg, model, CASE, data_train, data_val,
-                           params=params, device="cpu",
-                           generator=torch.Generator().manual_seed(2))
+        g = torch.Generator().manual_seed(2)
+        out = train_model(cfg, model, CASE, data_train, data_val,
+                          params=params, device="cpu", generator=g)
+        return out, g.get_state()
 
-    (p_graph, logs), (p_eager, want) = run(True), run(False)
+    ((p_graph, logs), g_graph), ((p_eager, want), g_eager) = (run(True),
+                                                             run(False))
     for a, b in zip(logs, want):
         assert torch.equal(torch.nan_to_num(a.float(), nan=7.0),
                            torch.nan_to_num(b.float(), nan=7.0))
     for a, b in zip(p_graph.parameters(), p_eager.parameters()):
         assert torch.equal(a, b)
-    stop, vf = logs.stop_iter, cfg.val_freq
-    blocks = int(logs.val_active.sum())
-    if stop <= vf:
+    assert torch.equal(g_graph, g_eager)
+    ran = _blocks_run(logs, cfg)
+    if ran == 1:
         assert _EagerGraph.made == []
     else:
-        step, val = _EagerGraph.made
-        assert (step.replays, val.replays) == (stop - vf, blocks - 1)
+        (graph,) = _EagerGraph.made
+        assert graph.replays == ran - 1
     if "patience" in over:
-        assert vf < stop < cfg.n_iter
+        assert cfg.val_freq < logs.stop_iter < cfg.n_iter
+        assert ran == int(logs.val_active.sum()) + 1
 
 
 def test_graphed_member_loop_equals_eager(eager_graphs, monkeypatch):
     """The member-batched graphed loop (replays run eagerly here), with
     members that stop at their own blocks, gives the eager loop's rows,
-    params and stops."""
+    params and stops, with one capture per run."""
     from dpivae_tpu_torch.sweep import train_sweep
 
     cfg = _cfg(n_iter=60, patience=1, min_delta=0.0, n_mc_val=1,
@@ -429,5 +447,6 @@ def test_graphed_member_loop_equals_eager(eager_graphs, monkeypatch):
                            torch.nan_to_num(b.float(), nan=7.0))
     for k in got.params:
         assert torch.equal(got.params[k], want.params[k]), k
-    assert len(_EagerGraph.made) == 2
+    (graph,) = _EagerGraph.made
+    assert graph.replays == _blocks_run(got.logs, cfg) - 1
     assert (got.logs.train_active.sum(dim=1) < cfg.n_iter).any()

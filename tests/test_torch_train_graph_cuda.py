@@ -2,11 +2,15 @@
 (``cuda_graph=False``), from the same seeds and weights: ``train_model``
 with annealed schedules (sigmoid λ, cyclical β_x) and the fused-MLP
 kernels (simple_beam's S model and bridge's P model), an early stop that
-latches under the graph, and ``build_member_train_fn`` (through
-``train_sweep``) with per-member early stops and with ``remat_decode``. Rows, params and stop iterations must be
-equal (max_abs_err 0): a replay runs the eager step's kernels on the same
-inputs, and its generators advance as the eager draws do. The launch
-counters count replays as launches, so both loops count the same.
+latches under the graph, a partial last block, and
+``build_member_train_fn`` (through ``train_sweep``) with per-member early
+stops and with ``remat_decode``. Rows, params, stop iterations and the
+generator's final state must be equal (max_abs_err 0): a replay of the
+block graph runs the eager block's kernels on the same inputs, and its
+generators advance as the eager draws do. The launch counters count
+replays as launches, so both loops count the same. One block graph is
+captured a run, replayed once a block after the first, the block after a
+stop included, and the host reads one flag a block, one block behind.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. Run it on the card without the repository's conftest (which imports
@@ -60,15 +64,17 @@ def _single(device, case_name="simple_beam", preset="dpivae", **over):
         out = train_model(cfg, model, case, data_train, data_val,
                           params=params, generator=g, device=device,
                           cuda_graph=cuda_graph)
-        return out, (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+        return (out, (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches),
+                g.get_state())
 
     return cfg, run
 
 
 def _equal(got, want):
-    (p_got, logs_got), launches_got = got
-    (p_want, logs_want), launches_want = want
+    (p_got, logs_got), launches_got, g_got = got
+    (p_want, logs_want), launches_want, g_want = want
     assert launches_got == launches_want
+    assert torch.equal(g_got, g_want)
     assert logs_got.stop_iter == logs_want.stop_iter
     for a, b in zip(logs_got, logs_want):
         assert torch.equal(a, b) or (a.is_floating_point() and torch.equal(
@@ -94,15 +100,64 @@ def test_train_model_graph_equals_eager(device, case_name, preset):
 FAST = {name: 0.01 for name in ("lr_e", "lr_p", "lr_dx", "lr_dc", "lr_dy")}
 
 
-def test_train_model_early_stop_under_the_graph(device):
+class _Counted:
+    """Counts the block graph's captures and replays and the host's flag
+    reads of a run."""
+
+    def __init__(self, monkeypatch):
+        from dpivae_tpu_torch.train import train as train_mod
+
+        self.captures, self.replays, self.reads = 0, 0, 0
+        counted = self
+
+        class Graphed(train_mod.Graphed):
+            def __init__(self, *args, **kwargs):
+                counted.captures += 1
+                super().__init__(*args, **kwargs)
+
+            def replay(self):
+                counted.replays += 1
+                return super().replay()
+
+        read = train_mod._LaggedFlag.read
+
+        def counted_read(flag, block):
+            counted.reads += 1
+            return read(flag, block)
+
+        monkeypatch.setattr(train_mod, "Graphed", Graphed)
+        monkeypatch.setattr(train_mod._LaggedFlag, "read", counted_read)
+
+
+def test_train_model_early_stop_under_the_graph(device, monkeypatch):
     """patience 1 with a one-sample validation (noisy) and 10x learning
     rates: the first validation worse than the best latches the stop,
     after block 0 and so inside the replays; the stop iteration and the
-    break-point params equal eager's."""
+    break-point params equal eager's. One capture; a replay for every
+    block after the first up to the block after the stop; one flag read
+    a block from block 1 on."""
     cfg, run = _single(device, n_iter=200, patience=1, min_delta=0.0,
                        n_mc_val=1, **FAST)
+    counted = _Counted(monkeypatch)
     graphed = run(True)
-    assert cfg.val_freq < graphed[0][1].stop_iter < cfg.n_iter
+    logs = graphed[0][1]
+    assert cfg.val_freq < logs.stop_iter < cfg.n_iter
+    blocks = min(int(logs.val_active.sum()) + 1, logs.val.shape[0])
+    assert (counted.captures, counted.replays, counted.reads) == (
+        1, blocks - 1, blocks - 1)
+    vf = cfg.val_freq
+    assert graphed[1] == (blocks * (vf + 1), blocks * vf)
+    _equal(graphed, run(False))
+
+
+def test_train_model_partial_block_under_the_graph(device):
+    """n_iter 55 with val_freq 10: the last block's steps past n_iter run
+    masked inside the same graph (their launches counted), and leave the
+    state of step 54."""
+    cfg, run = _single(device, n_iter=55)
+    graphed = run("auto")
+    assert graphed[0][1].stop_iter == 55
+    assert graphed[1] == (6 * 11, 60)
     _equal(graphed, run(False))
 
 

@@ -324,13 +324,13 @@ def test_study_end_to_end_resumes_and_both_baselines(tmp_path, monkeypatch):
     rows; --baselines sklearn (member by member) gives the batched fit's
     LIN rows."""
     steps = [0]
-    step = train_mod.MemberTrainer.step
+    step = train_mod.MemberTrainer.step_body
 
     def counted(self, *args, **kwargs):
         steps[0] += 1
         return step(self, *args, **kwargs)
 
-    monkeypatch.setattr(train_mod.MemberTrainer, "step", counted)
+    monkeypatch.setattr(train_mod.MemberTrainer, "step_body", counted)
     out = str(tmp_path)
     run = transfer.main([*TINY, "--baselines", "jax", "--output", out])
     assert steps[0] == 2 * 30
