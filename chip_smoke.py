@@ -248,6 +248,20 @@ Phases; any failure exits non-zero before the result line:
    512 MC and the caller's generator after them (its next draw equal);
    one prediction figure's data and ``marginal_prior_data`` of phase 8's
    model at 2,000 x 5, equal, and the wall of each, graphed and eager.
+   Then the sweeps' sampling graphs (``sweep/sweep.py`` through
+   ``utils/graph_cache.py``'s member-chunk entries), from an empty member
+   cache: ``sweep_sample`` (nine slots, 128 points x 16 MC),
+   ``sweep_predict_y`` (n_test x n_mc_test) and
+   ``sweep_disentanglement_latents`` (the study's 2,048 + 2,048 probe
+   points) of phase 10's 66-member "auto" sweep (3 chunks of 22) and of
+   phase 12's 24-member use_pallas=True grid (5 chunks of 5, one pad),
+   each in turns graphed (its capture included), eager, graphed, eager,
+   graphed: every output equal to eager (max_abs_err 0), every member's
+   generator at the same next draw, one capture and one replay a chunk
+   after it, the forward's launches one a chunk both ways in the grid's
+   ``sweep_sample``, the walls; the member entries' bytes before and
+   after an eviction by their bound; and the walls of the study's latents
+   stage and the transfer study's predict stages of phases 10 and 12.
 18. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
    and, last, the device line.
 
@@ -348,6 +362,15 @@ LSTSQ_TOL = 1e-3
 N_ROWS_COMPARED = 10
 N_REQUESTS = 3
 N_TIMED_REQUESTS = 20
+# Phase 17 (c), the sweeps' sampling graphs: sweep_sample of all nine
+# slots at 128 points x 16 MC; sweep_predict_y at the config's n_test x
+# n_mc_test, as the transfer study's predict stage asks it; the latents at
+# the study's 2,048 + 2,048 probe points (its --n_train_regressor and
+# --n_test_regressor), one sample, as its latents stage asks them; the
+# grid in chunks of at most 5, so that one member is padded.
+SWEEP_SAMPLE_POINTS, SWEEP_SAMPLE_MC = 128, 16
+STUDY_PROBE_POINTS = 2_048
+GRID_SAMPLING_CHUNK = 5
 # Least-time bound: H100 SXM published peaks (f32 outside the tensor
 # cores; dense TF32 on the tensor cores; HBM3), at the full 700 W power
 # limit.
@@ -1552,13 +1575,16 @@ def _batched_kernels(ops, failures):
 def _sweep(ops, failures, card):
     """train_sweep at bench.py's sweep workload, "auto" (plain) and
     use_pallas=True, each timed after a warm-up. Returns the (forward,
-    hidden) launches of the counted use_pallas=True run."""
+    hidden) launches of the counted use_pallas=True run, the member-steps/s
+    and phase 17 (c)'s inputs (config, case, the "auto" result, the
+    members' training sets, a test set's x and c for every member)."""
     from dpivae_tpu_torch import TrainConfig
     from dpivae_tpu_torch.cases import get_case
     from dpivae_tpu_torch.sweep import member_datasets, train_sweep
     from dpivae_tpu_torch.train import setup_model, train_model
     from dpivae_tpu_torch.train.setup import make_template_model
     from dpivae_tpu_torch.train.train import member_generators
+    from dpivae_tpu_torch.utils.data import sample_response
 
     case = get_case("damped_oscillator")
     base = TrainConfig().with_preset(case.presets["dpivae"]).replace(
@@ -1633,8 +1659,18 @@ def _sweep(ops, failures, card):
     if not torch.allclose(got, single.train, rtol=TRAIN_TOL, atol=TRAIN_TOL):
         failures.append("sweep: a member disagrees with its single run")
     _profile_sweep_step(base.replace(use_pallas=True), case, lambdas)
+    # Phase 17 (c)'s inputs: the "auto" sweep, each member's training set
+    # (its scalers') and one test set of n_test points for every member.
+    res = runs["auto"]
+    rows = [member_datasets(base, case, k, "cuda")[0] for k in res.keys]
+    dtr = tuple(torch.stack([r[k] for r in rows]) for k in range(3))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    test = sample_response(case, g, base.n_test, sample_dist=case.gt_dist(),
+                           device="cuda")
+    x, c = (a.expand(SWEEP_MEMBERS, *a.shape) for a in test[:2])
     return launches["kernel"], {k: SWEEP_MEMBERS * n / t
-                                for k, t in times.items()}
+                                for k, t in times.items()}, (
+        base.replace(use_pallas="auto"), case, res, dtr, x, c)
 
 
 def _member_run(cfg, case, lambdas, data=None):
@@ -1690,8 +1726,9 @@ def _profile_sweep_step(cfg, case, lambdas, data=None):
 
 
 def _study(ops, failures, card):
-    """The disentanglement study in process, then its resume. Returns the
-    (forward, hidden) launches of both calls."""
+    """The disentanglement study in process, then its resumes. Returns the
+    (forward, hidden) launches of the calls and the seconds of each call's
+    latents stage."""
     import csv
     import tempfile
 
@@ -1784,7 +1821,7 @@ def _study(ops, failures, card):
             or len(epochs.n_iter) != want_rows):
         failures.append("study: the --regressor mlp resume trained, "
                         "launched, or wrote rows missing or not finite")
-    return tuple(total)
+    return tuple(total), [call[0].timings["latents"] for call in calls]
 
 
 class _EpochRecorder:
@@ -1968,7 +2005,10 @@ def _transfer(ops, failures, card):
     """The transfer study in process, its resume, a member's artifact, then
     the use_pallas=True grid on the same datasets (phase 12). Returns the
     (forward, hidden) launches of the counted runs, the grid's
-    member-steps/s and its inputs (config, case, λs, datasets)."""
+    member-steps/s and its inputs (config, case, λs, datasets), phase 17
+    (c)'s inputs (the grid's use_pallas=True config, case and result, its
+    training sets, the test sets' x and c) and the seconds of each call's
+    predict stages."""
     import csv
     import tempfile
 
@@ -2202,9 +2242,14 @@ def _transfer(ops, failures, card):
                         "run")
     _profile_sweep_step(base.replace(use_pallas=True), case, lambdas,
                         data=(dtr, dva))
+    predict_walls = [(f"{k[len('predict_'):]} (call {i + 1})", call[3][k])
+                     for i, call in enumerate(calls)
+                     for k in ("predict_DPIVAE-A", "predict_DPIVAE-B")]
+    sampling = (base.replace(use_pallas=True), case, results["kernel"],
+                dtr, *run.data[2][:2])
     return tuple(a + b for a, b in zip(total, counts["kernel"])), {
         k: n_members * n / t for k, t in times.items()}, (
-        base, case, lambdas, dtr, dva)
+        base, case, lambdas, dtr, dva), sampling, predict_walls
 
 
 def _max_diff(got, want) -> float:
@@ -3447,11 +3492,200 @@ def _graph_eval_figures(ops, failures, card, setup, run):
     return launches
 
 
-def _graph_inference(ops, failures, card, setups, served, run):
+class _CacheCounts:
+    """Counts, while it is entered, the captures and replays of the
+    graphs of ``utils/graph_cache.py``."""
+
+    def __enter__(self):
+        from dpivae_tpu_torch.utils import graph_cache
+
+        self.captures = self.replays = 0
+        counts, self._mod = self, graph_cache
+        self._saved = graphed = graph_cache.Graphed
+
+        class Counted(graphed):
+            def __init__(self, *args, **kwargs):
+                counts.captures += 1
+                super().__init__(*args, **kwargs)
+
+            def replay(self):
+                counts.replays += 1
+                return super().replay()
+
+        graph_cache.Graphed = Counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.Graphed = self._saved
+        return False
+
+
+def _sweep_sampling(ops, failures, card, what, setup, chunk_size):
+    """Phase 17 (c) for one sweep, ``setup`` = (config, case, result,
+    data_train, x, c): ``sweep_sample``, ``sweep_predict_y`` and
+    ``sweep_disentanglement_latents`` graphed ("auto") against
+    ``cuda_graph=False`` from the same seeds, in turns: graphed (its
+    capture included), eager, graphed, eager, graphed. Every output equal
+    to the first eager one (max_abs_err 0) and every member's generator
+    (each member's and each member key's) drawing the same next numbers
+    after every call; one capture, one replay a chunk after it; the
+    forward's launches one a chunk both ways where decoder_x runs (the
+    kernel model's ``sweep_sample``). Returns the forward launches of the
+    graphed calls."""
+    from dpivae_tpu_torch.sweep import sweep as sweep_mod
+
+    cfg, case, res, dtr, x, c = setup
+    pts = SWEEP_SAMPLE_POINTS
+    calls = {
+        f"sweep_sample, 9 slots at {pts} points x {SWEEP_SAMPLE_MC} MC":
+            lambda cuda_graph: sweep_mod.sweep_sample(
+                cfg, case, res, dtr, x[:, :pts], c[:, :pts],
+                n=SWEEP_SAMPLE_MC, seed=SEED + 6, chunk_size=chunk_size,
+                cuda_graph=cuda_graph),
+        f"sweep_predict_y at {x.shape[1]} points x {cfg.n_mc_test} MC":
+            lambda cuda_graph: (sweep_mod.sweep_predict_y(
+                cfg, case, res, dtr, x, c, n=cfg.n_mc_test, seed=SEED + 7,
+                chunk_size=chunk_size, cuda_graph=cuda_graph),),
+        f"sweep_disentanglement_latents at {STUDY_PROBE_POINTS} + "
+        f"{STUDY_PROBE_POINTS} probe points":
+            lambda cuda_graph: tuple(sweep_mod.sweep_disentanglement_latents(
+                cfg, case, res, STUDY_PROBE_POINTS, STUDY_PROBE_POINTS,
+                seed=SEED + 8, chunk_size=chunk_size,
+                cuda_graph=cuda_graph).values()),
+    }
+    size, n_padded = sweep_mod._member_chunks(res.n_members, chunk_size)
+    n_chunks = n_padded // size
+    kernel = sweep_mod.member_config(cfg).use_pallas is True
+    made = []
+    make = sweep_mod.member_generators
+
+    def recorded(*args, **kwargs):
+        gens = make(*args, **kwargs)
+        made.extend(gens)
+        return gens
+
+    launches = 0
+    sweep_mod.member_generators = recorded
+    try:
+        for name, call in calls.items():
+            turns = ("auto", False, "auto", False, "auto")
+            walls, outs, draws, counted = {"auto": [], False: []}, [], [], []
+            with _CacheCounts() as counts:
+                for cuda_graph in turns:
+                    made.clear()
+                    before = ops.fused_mlp.launches
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = call(cuda_graph)
+                    torch.cuda.synchronize()
+                    walls[cuda_graph].append(
+                        1e3 * (time.perf_counter() - t0))
+                    counted.append(ops.fused_mlp.launches - before)
+                    outs.append(out)
+                    draws.append([torch.randn(8, generator=g, device=g.device)
+                                  for g in made])
+            want = outs[1]
+            worst = max(_max_diff(o, want) for o in outs)
+            same = all(torch.equal(a, b) for d in draws
+                       for a, b in zip(d, draws[1]))
+            want_launches = n_chunks if kernel and "sample," in name else 0
+            replays = len(turns[::2]) * n_chunks - 1
+            print(f"sweep sampling graph vs eager, {what}, {name}: "
+                  f"max_abs_err {worst:.3e} (expected 0); {res.n_members} "
+                  f"members in {n_chunks} chunk(s) of {size} "
+                  f"({n_padded - res.n_members} padded); graphs "
+                  f"{counts.captures} capture, {counts.replays} replays "
+                  f"(expected 1, {replays}); fused_mlp_fwd launches "
+                  f"{counted[0]}, {counted[2]} graphed, {counted[1]} eager "
+                  f"(expected {want_launches}); the members' "
+                  f"{len(draws[1])} generators' next draws equal after "
+                  f"both paths: {same}")
+            print(f"sweep sampling walls, {what}, {name} ({card}): graphed "
+                  f"with its capture {walls['auto'][0]:.1f} ms, graphed "
+                  f"warm {statistics.median(walls['auto'][1:]):.1f} ms, "
+                  f"eager {statistics.median(walls[False]):.1f} ms (turns "
+                  f"graphed, eager, graphed, eager, graphed)")
+            if (worst != 0 or not same or (counts.captures, counts.replays)
+                    != (1, replays)
+                    or set(counted) != {want_launches}):
+                failures.append(f"sweep sampling graph vs eager ({what}, "
+                                f"{name}): max_abs_err {worst:.3e}, draws "
+                                f"equal {same}, captures and replays "
+                                f"{counts.captures}, {counts.replays}, "
+                                f"launches {counted}")
+            launches += counted[0] + counted[2] + counted[4]
+    finally:
+        sweep_mod.member_generators = make
+    return launches
+
+
+def _graph_sweeps(ops, failures, card, sweeps, stage_walls):
+    """Phase 17 (c): the sweeps' sampling graphs (``_sweep_sampling``) of
+    phase 10's 66-member damped_oscillator sweep ("auto": plain), at the
+    default chunk, and phase 12's 24-member bridge / "DPIVAE-A" grid
+    (use_pallas=True) in chunks of at most 5 (5 chunks of 5: one pad),
+    from an empty member cache; the bytes the member entries hold before
+    and after an eviction by their bound; the walls of the study's latents
+    stage and the transfer study's predict stages (phases 10 and 12, run
+    through "auto"). Returns the forward launches of the graphed calls."""
+    from dpivae_tpu_torch.sweep import sweep_predict_y
+    from dpivae_tpu_torch.utils import graph_cache
+
+    held = graph_cache._MEMBER_CACHE
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    print(f"sweep sampling graphs held after phases 10-16: {len(held)} "
+          f"entries, {held.nbytes() / 1e6:.1f} MB (bound {held.share:.2f} "
+          f"x {card_bytes / 1e9:.1f} GB); phase 17 (c) starts from an "
+          f"empty member cache")
+    graph_cache._MEMBER_CACHE = graph_cache.ByteLRU(held.share)
+    del held
+    torch.cuda.empty_cache()
+    launches = 0
+    for what, (setup, chunk_size) in sweeps.items():
+        launches += _sweep_sampling(ops, failures, card, what, setup,
+                                    chunk_size)
+    cache = graph_cache._MEMBER_CACHE
+    print("sweep sampling graphs, each entry's bytes (its own pool and "
+          "static inputs), in the order above: " + ", ".join(
+              f"{e.nbytes / 1e6:.1f} MB" for e in cache.entries()))
+    before = (len(cache), cache.nbytes(), graph_cache.held_bytes(),
+              torch.cuda.memory_reserved())
+    # A bound of 0 keeps only the newest entry: one new signature (the
+    # grid's ŷ at 64 MC) evicts every other.
+    cache.share = 0.0
+    (setup, chunk_size), = [v for k, v in sweeps.items() if "grid" in k]
+    cfg, case, res, dtr, x, c = setup
+    sweep_predict_y(cfg, case, res, dtr, x, c, n=64, seed=SEED,
+                    chunk_size=chunk_size)
+    after = (len(cache), cache.nbytes(), graph_cache.held_bytes(),
+             torch.cuda.memory_reserved())
+    cache.share = graph_cache._MEMBER_SHARE
+    print(f"sweep sampling graphs ({card}): before an eviction "
+          f"{before[0]} entries, {before[1] / 1e6:.1f} MB in their own "
+          f"pools and static inputs ({before[2] / 1e6:.1f} MB held by all "
+          f"the graph caches, {before[3] / 1e6:.1f} MB reserved in all); "
+          f"after it (bound 0: the newest kept) {after[0]} entry, "
+          f"{after[1] / 1e6:.1f} MB ({after[2] / 1e6:.1f} MB, "
+          f"{after[3] / 1e6:.1f} MB reserved)")
+    if after[0] != 1 or not after[3] < before[3]:
+        failures.append(f"sweep sampling graphs: the eviction left "
+                        f"{after[0]} entries, reserved {before[3]} -> "
+                        f"{after[3]} bytes")
+    print(f"stage walls through 'auto' ({card}): the study's latents "
+          + ", ".join(f"{w:.3f} s" for w in stage_walls["latents"])
+          + " (trained, resumed, resumed with mlp probes); the transfer "
+          "study's predict " + ", ".join(
+              f"{k} {w:.3f} s" for k, w in stage_walls["predict"]))
+    return launches
+
+
+def _graph_inference(ops, failures, card, setups, served, run, sweeps,
+                     stage_walls):
     """Phase 17. Returns the forward launches of its graphed calls."""
     return (_graph_requests(ops, failures, card, setups, served)
             + _graph_eval_figures(ops, failures, card,
-                                  setups["simple_beam"], run))
+                                  setups["simple_beam"], run)
+            + _graph_sweeps(ops, failures, card, sweeps, stage_walls))
 
 
 def main() -> int:
@@ -3532,18 +3766,19 @@ def main() -> int:
     # This slice's paths: sweeps and the study on them (damped_oscillator,
     # 8 -> 128 -> 64, 66 members).
     batched = _batched_kernels(ops, failures)
-    (w_fwd, w_hidden), member_steps = _sweep(ops, failures, card)
+    (w_fwd, w_hidden), member_steps, sweep_setup = _sweep(ops, failures,
+                                                          card)
     print(f"sweep member-steps/s ({card}): use_pallas 'auto' (plain) "
           f"{member_steps['auto']:.1f}, use_pallas=True (kernels) "
           f"{member_steps['kernel']:.1f} ({SWEEP_MEMBERS} members x "
           f"{N_ITER_SWEEP} steps)")
-    y_fwd, y_hidden = _study(ops, failures, card)
+    (y_fwd, y_hidden), latents_walls = _study(ops, failures, card)
 
     # This slice's paths: the serving artifact, then the transfer study
     # (bridge, both presets, 24 members each) and its use_pallas=True grid.
     a_fwd, served = _artifact(ops, failures, card, serve_setup, request)
-    (t_fwd, t_hidden), transfer_steps, grid = _transfer(ops, failures,
-                                                        card)
+    ((t_fwd, t_hidden), transfer_steps, grid, grid_setup,
+     predict_walls) = _transfer(ops, failures, card)
     print(f"transfer grid member-steps/s ({card}): use_pallas 'auto' "
           f"(plain) {transfer_steps['auto']:.1f}, use_pallas=True (kernels) "
           f"{transfer_steps['kernel']:.1f} ({TRANSFER_RUNS * 4} members x "
@@ -3566,7 +3801,14 @@ def main() -> int:
     setups = {"simple_beam": (*serve_setup, request),
               "bridge": (*b_setup, b_request),
               "damped_oscillator": (*o_setup, o_request)}
-    i_fwd = _graph_inference(ops, failures, card, setups, served, run)
+    sweeps = {
+        f"phase 10's {SWEEP_MEMBERS} damped_oscillator members ('auto': "
+        f"plain)": (sweep_setup, None),
+        f"phase 12's {TRANSFER_RUNS * 4}-member bridge / 'DPIVAE-A' grid "
+        f"(use_pallas=True)": (grid_setup, GRID_SAMPLING_CHUNK)}
+    i_fwd = _graph_inference(ops, failures, card, setups, served, run,
+                             sweeps, {"latents": latents_walls,
+                                      "predict": predict_walls})
 
     fwd_total = (serve_launches + fwd_launches + b_launches + b_fwd
                  + o_launches + s_fwd + d_fwd + w_fwd + y_fwd + a_fwd + t_fwd

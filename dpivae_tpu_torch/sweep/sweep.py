@@ -40,9 +40,15 @@ the same way and gather their outputs. A sharded sweep has no chunk
 files or chunk callback: ``checkpoint_dir`` and ``chunk_callback`` are
 refused with a mesh, as in the JAX package.
 
-The JAX package's ``_aot``, ``warm_disentanglement_latents`` and jit
-caches only warm or cache compiled programs; eager PyTorch compiles
-nothing, so they have no counterpart. Neither have ``member_step_cost``,
+The evaluators (``sweep_sample``, ``sweep_predict_y``,
+``sweep_disentanglement_latents``) run their members in chunks padded to
+one shape, each chunk under ``torch.func.vmap``; on CUDA each chunk
+replays one CUDA graph (``cuda_graph="auto"``), cached by signature in
+``utils/graph_cache.py``'s member-chunk LRU, bounded by bytes: the
+counterpart of the JAX package's ``jit(vmap(...))`` in its
+``_SWEEP_JIT_CACHE``. The JAX package's ``_aot`` and
+``warm_disentanglement_latents`` only warm compiled programs, and have no
+counterpart. Neither have ``member_step_cost``,
 ``_warn_if_over_budget`` and ``_warn_if_dir_large``: they size chunks
 and warn against a TPU transport's per-program deadline, which a card
 does not have (``auto_chunk_size`` sizes chunks by free memory).
@@ -67,6 +73,7 @@ from dpivae_tpu_torch.eval.evaluate import build_eval_sample_fn
 from dpivae_tpu_torch.models.decoders import DECODER_X_HIDDEN
 from dpivae_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from dpivae_tpu_torch.train.checkpoint import save_model
+from dpivae_tpu_torch.train.graph import resolve_cuda_graph
 from dpivae_tpu_torch.train.setup import make_template_model, setup_model
 from dpivae_tpu_torch.train.train import (
     TRACEABLE_HYPER_FIELDS,
@@ -77,7 +84,12 @@ from dpivae_tpu_torch.train.train import (
     member_generators,
     stack_params,
 )
-from dpivae_tpu_torch.utils import DeviceLike, randn, resolve_device
+from dpivae_tpu_torch.utils import (
+    DeviceLike,
+    graph_cache,
+    randn,
+    resolve_device,
+)
 from dpivae_tpu_torch.utils.data import sample_response
 
 # Members per batched latent-extraction (and prediction) call, shared by
@@ -821,52 +833,126 @@ def _stack_noise(noises) -> dict:
     return {k: torch.stack([d[k] for d in noises]) for k in noises[0]}
 
 
-def _member_slices(n_members: int, chunk_size: Optional[int]):
-    size = max(1, min(chunk_size or LATENTS_CHUNK_DEFAULT, n_members))
-    return [slice(s, min(s + size, n_members))
-            for s in range(0, n_members, size)]
+def _member_chunks(n_members: int, chunk_size: Optional[int]):
+    """(members per chunk, the member count padded to whole chunks): as
+    few chunks as ``chunk_size`` (at most; default
+    ``LATENTS_CHUNK_DEFAULT``) allows, all of one size, so that fewer
+    members are padded than there are chunks (24 members at most 22 a
+    chunk: two of 12, where the JAX package pads the last 2 with 20)."""
+    most = max(1, min(chunk_size or LATENTS_CHUNK_DEFAULT, n_members))
+    n_chunks = -(-n_members // most)
+    size = -(-n_members // n_chunks)
+    return size, size * n_chunks
+
+
+def _copy_generator(g: torch.Generator) -> torch.Generator:
+    copy = torch.Generator(device=g.device)
+    copy.set_state(g.get_state())
+    return copy
+
+
+def _prefixed(inputs: dict, prefix: str) -> dict:
+    """The entries of ``inputs`` named ``prefix`` + name, by name."""
+    return {k[len(prefix):]: v for k, v in inputs.items()
+            if k.startswith(prefix)}
+
+
+def _params_args(result, ids, device) -> dict:
+    """The params of the members ``ids`` as chunk inputs, ``p:<name>``,
+    on ``device``."""
+    index = torch.as_tensor(np.asarray(ids), device=device)
+    return {f"p:{k}": v.to(device)[index]
+            for k, v in result.params.items()}
+
+
+def _run_chunks(sig, args: dict, generators, make_body, n_members: int,
+                chunk_size: Optional[int], graphed: bool) -> tuple:
+    """``make_body(inputs, generators)()`` over the members in chunks
+    (``_member_chunks``), the members padded to whole chunks by repeating
+    the last, as the JAX package pads them
+    (dpivae_tpu/sweep/sweep.py:1421-1429), in the graphed path and the
+    eager one alike: both then compute the same, and one signature serves
+    every chunk. ``args`` are tensors with a leading member axis (params,
+    data, inputs, noise); ``generators`` a list per member, the generators
+    of its slot (empty where the noise is given), the padded slots drawing
+    from copies of the last member's, whose advanced states go back to no
+    member. Graphed, each chunk is one call of
+    ``graph_cache.cached_members`` under ``sig``; else the body runs
+    eagerly under ``no_grad``. Returns the outputs of the ``n_members``
+    members, the pads' dropped."""
+    size, n_padded = _member_chunks(n_members, chunk_size)
+    args = {k: _pad_members(v, n_padded).contiguous()
+            for k, v in args.items()}
+    generators = list(generators) + [
+        [_copy_generator(g) for g in generators[-1]]
+        for _ in range(n_padded - n_members)]
+    outs = []
+    for start in range(0, n_padded, size):
+        chunk = {k: v[start:start + size] for k, v in args.items()}
+        gens = [g for slot in generators[start:start + size] for g in slot]
+        if graphed:
+            outs.append(graph_cache.cached_members(sig, chunk, gens,
+                                                   make_body))
+        else:
+            with torch.no_grad():
+                outs.append(make_body(chunk, gens)())
+    return tuple(torch.cat([o[j] for o in outs])[:n_members]
+                 for j in range(len(outs[0])))
 
 
 def _sample_members(config, case, result, data_train, x, c, *, cond, n,
-                    slots, seed, noise, chunk_size, ids=None):
+                    slots, seed, noise, chunk_size, cuda_graph, mean=False,
+                    ids=None):
     """``DPIVAE.sample`` of ``slots`` for the members ``ids`` (default
-    all; stacked, leading member axis), in chunks of members under
-    ``torch.func.vmap`` on the device the members trained on: each
-    member's scalers fitted on its ``data_train``, its noise from
-    ``noise`` (stacked mappings) or drawn from its own generator, seeded
-    from (seed, member), outside vmap. ``data_train``, ``x``, ``c`` and
-    ``noise`` hold the members ``ids``."""
+    all; stacked, leading member axis), in chunks of members
+    (``_run_chunks``) under ``torch.func.vmap`` on the device the members
+    trained on: each member's scalers fitted on its ``data_train``, its
+    noise from ``noise`` (stacked mappings) or drawn inside the chunk from
+    its own generator, seeded from (seed, member). With ``mean`` each
+    slot's MC mean is taken inside the chunk. ``cuda_graph`` ("auto",
+    True, False) as ``train.graph.resolve_cuda_graph`` resolves it on that
+    device: graphed, each chunk replays one CUDA graph. ``data_train``,
+    ``x``, ``c`` and ``noise`` hold the members ``ids``."""
     config = member_config(config)
     device = torch.device(result.device)
+    graphed = resolve_cuda_graph(cuda_graph, device)
     ids = np.arange(result.n_members) if ids is None else np.asarray(ids)
     as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    data_train = tuple(as_t(a) for a in data_train[:3])
-    x, c = as_t(x), as_t(c)
+    args = {**_params_args(result, ids, device),
+            **{name: as_t(a) for name, a in zip(
+                ("x_train", "c_train", "y_train"), data_train[:3])},
+            "x": as_t(x), "c": as_t(c),
+            **{f"noise_{k}": as_t(v)
+               for k, v in sorted((noise or {}).items())}}
+    gens = ([[g] for g in member_generators(seed, ids, device)]
+            if noise is None else [[] for _ in ids])
     template = make_template_model(config, case, device=device)
     sample_fn = torch.func.vmap(build_eval_sample_fn(
         config, case, cond, n, slots=slots, device=device))
-    gens = (member_generators(seed, ids, device) if noise is None else None)
-    outs = []
-    for sl in _member_slices(len(ids), chunk_size):
-        if noise is None:
-            eps = _stack_noise([_observation_noise(
-                template, g, n, x.shape[1], cond, slots, device)
-                for g in gens[sl]])
-        else:
-            eps = {k: as_t(v[sl]) for k, v in noise.items()}
-        state = {k: v[torch.as_tensor(ids[sl])].to(device)
-                 for k, v in result.params.items()}
-        with torch.no_grad():
-            outs.append(sample_fn(state, tuple(a[sl] for a in data_train),
-                                  x[sl], c[sl], eps))
-    return tuple(torch.cat([o[j] for o in outs]) for j in range(len(slots)))
+
+    def make_body(inputs, gens):
+        def body():
+            eps = _prefixed(inputs, "noise_") or _stack_noise([
+                _observation_noise(template, g, n, inputs["x"].shape[1],
+                                   cond, slots, device) for g in gens])
+            out = sample_fn(_prefixed(inputs, "p:"),
+                            (inputs["x_train"], inputs["c_train"],
+                             inputs["y_train"]),
+                            inputs["x"], inputs["c"], eps)
+            return tuple(torch.mean(o, dim=1) if mean else o for o in out)
+        return body
+
+    sig = ("sample", config, case.fingerprint(), bool(cond), int(n),
+           tuple(slots), bool(mean))
+    return _run_chunks(sig, args, gens, make_body, len(ids), chunk_size,
+                       graphed)
 
 
 def _sharded_sample(config, case, result, data_train, x, c, *, mesh,
                     member_axis, noise, **kwargs):
     """``_sample_members`` of every member, with a mesh each rank's
     contiguous share (the member count must divide by the axis size) and
-    the outputs gathered over ``member_axis``."""
+    the outputs gathered over ``member_axis``, outside any graph."""
     if mesh is None:
         return _sample_members(config, case, result, data_train, x, c,
                                noise=noise, **kwargs)
@@ -887,31 +973,36 @@ def _sharded_sample(config, case, result, data_train, x, c, *, mesh,
 def sweep_sample(config: TrainConfig, case: Case, result, data_train, x, c,
                  cond: bool = False, n: int = 1, seed: int = 0, noise=None,
                  chunk_size: Optional[int] = None,
-                 mesh: Optional[Mesh] = None, member_axis: str = "sweep"):
+                 mesh: Optional[Mesh] = None, member_axis: str = "sweep",
+                 cuda_graph="auto"):
     """``model.sample`` of every member: the stacked 9-tuple, each with a
     leading member axis. ``data_train`` (the members' training sets, for
-    their scalers), ``x`` and ``c`` carry a leading member axis; noise as
-    in ``_sample_members``. With ``mesh`` the members (a multiple of the
-    ``member_axis`` size) are split over the axis and the outputs gathered
-    on every rank."""
+    their scalers), ``x`` and ``c`` carry a leading member axis; noise,
+    chunks and ``cuda_graph`` as in ``_sample_members``. With ``mesh`` the
+    members (a multiple of the ``member_axis`` size) are split over the
+    axis, each rank's chunks graphed, and the outputs gathered on every
+    rank."""
     return _sharded_sample(config, case, result, data_train, x, c,
                            mesh=mesh, member_axis=member_axis, noise=noise,
                            cond=cond, n=n, slots=tuple(range(9)), seed=seed,
-                           chunk_size=chunk_size)
+                           chunk_size=chunk_size, cuda_graph=cuda_graph)
 
 
 def sweep_predict_y(config: TrainConfig, case: Case, result, data_train, x,
                     c, cond: bool = False, n: int = 1, seed: int = 0,
                     noise=None, chunk_size: Optional[int] = None,
-                    mesh: Optional[Mesh] = None, member_axis: str = "sweep"):
+                    mesh: Optional[Mesh] = None, member_axis: str = "sweep",
+                    cuda_graph="auto"):
     """The posterior-mean ŷ of every member, (M, n_test, nd_y): only the
-    y slot is sampled (no decoder_x), its mean over n samples. ``mesh`` as
-    in ``sweep_sample``."""
+    y slot is sampled (no decoder_x), its mean over n samples taken inside
+    each chunk, so the (members x n x points x nd_y) samples never leave
+    it. ``mesh`` and ``cuda_graph`` as in ``sweep_sample``."""
     (y,) = _sharded_sample(config, case, result, data_train, x, c,
                            mesh=mesh, member_axis=member_axis, noise=noise,
                            cond=cond, n=n, slots=(4,), seed=seed,
-                           chunk_size=chunk_size)
-    return torch.mean(y, dim=1)
+                           chunk_size=chunk_size, cuda_graph=cuda_graph,
+                           mean=True)
+    return y
 
 
 def regressor_datasets(case: Case, generator, n_train_reg: int,
@@ -924,25 +1015,32 @@ def regressor_datasets(case: Case, generator, n_train_reg: int,
                  for n in (n_train_reg, n_test_reg))
 
 
+_LATENT_SPLITS = ("train", "test")
+
+
 def sweep_disentanglement_latents(
     config: TrainConfig, case: Case, result, n_train_reg: int,
     n_test_reg: int, cond: bool = False, use_mean: bool = False,
     seed: int = 1, chunk_size: Optional[int] = None, noise=None,
     mesh: Optional[Mesh] = None, member_axis: str = "sweep",
+    cuda_graph="auto",
 ):
     """Posterior latents of every member on fresh probe datasets.
 
-    Per member: its training data replayed from its key (for its scalers,
-    as it trained), probe train/test datasets drawn from its own
-    generator, seeded from (seed, member) (``regressor_datasets``), and
-    the MC-mean latents (one sample, or ``config.n_mc_test`` with
-    ``use_mean``) of both splits, the encoder's noise drawn from the same
-    generator after the datasets, or taken from ``noise``, a pair of
-    stacked mappings (train, test). Members run in chunks of
-    ``chunk_size`` (default ``LATENTS_CHUNK_DEFAULT``). With ``mesh`` each
-    chunk's members are split over ``member_axis`` (``chunk_size`` must
-    divide by its size; the members are padded to a multiple of it by
-    repeating the last), and the latents are gathered on every rank.
+    Per member, inside its chunk (as the JAX package's member function,
+    dpivae_tpu/sweep/sweep.py:1391-1407): its training data replayed from
+    its key's generator (for its scalers, as it trained), probe train/test
+    datasets drawn from its own generator, seeded from (seed, member)
+    (``regressor_datasets``), and the MC-mean latents (one sample, or
+    ``config.n_mc_test`` with ``use_mean``) of both splits, the encoder's
+    noise drawn from the same generator after the datasets, or taken from
+    ``noise``, a pair of stacked mappings (train, test). Members run in
+    chunks of ``chunk_size`` (default ``LATENTS_CHUNK_DEFAULT``; the last
+    padded), each chunk one replay of a CUDA graph when ``cuda_graph``
+    resolves so ("auto": on CUDA). With ``mesh`` each chunk's members are
+    split over ``member_axis`` (``chunk_size`` must divide by its size;
+    the members are padded to a multiple of it by repeating the last), and
+    the latents are gathered on every rank, outside the graphs.
 
     Returns a dict of (M, ...) tensors: zx/zc/zy_{train,test} and the
     ground-truth factors z_{train,test}.
@@ -950,7 +1048,6 @@ def sweep_disentanglement_latents(
     config = member_config(config)
     n = config.n_mc_test if use_mean else 1
     device = torch.device(result.device)
-    template = make_template_model(config, case, device=device)
     n_members = result.n_members
     ids = np.arange(n_members)
     if mesh is not None:
@@ -963,32 +1060,56 @@ def sweep_disentanglement_latents(
         if noise is not None:
             noise = tuple({k: _pad_members(v, n_padded)[share]
                            for k, v in split.items()} for split in noise)
-    gens = member_generators(seed, ids, device)
-    dtr_member, splits, eps = [], ([], []), ([], [])
-    for g, gen in zip(gens, _generators(result.keys[ids], device)):
-        dtr_member.append(sample_response(
-            case, gen, config.n_train, sample_dist=case.gt_dist(),
-            device=device)[:3])
-        for split, data in zip(splits, regressor_datasets(
-                case, g, n_train_reg, n_test_reg)):
-            split.append(data)
-        if noise is None:
-            for e, data in zip(eps, (splits[0][-1], splits[1][-1])):
-                e.append(_observation_noise(template, g, n, data[0].shape[0],
-                                            cond, (5, 6, 7), device))
+    graphed = resolve_cuda_graph(cuda_graph, device)
+    args = _params_args(result, ids, device)
+    if noise is not None:
+        args.update({f"noise_{split}_{k}": torch.as_tensor(
+            v, dtype=torch.float32, device=device)
+            for split, mapping in zip(_LATENT_SPLITS, noise)
+            for k, v in sorted(mapping.items())})
+    gens = [[key_gen, gen] for key_gen, gen in zip(
+        _generators(result.keys[ids], device),
+        member_generators(seed, ids, device))]
+    draw = noise is None
+    gt = case.gt_dist()
+    template = make_template_model(config, case, device=device)
+    sample_fn = torch.func.vmap(build_eval_sample_fn(
+        config, case, cond, n, slots=(5, 6, 7), device=device))
     stack = lambda rows, k: torch.stack([r[k] for r in rows])
-    data_train = tuple(stack(dtr_member, k) for k in range(3))
-    out = {}
-    for name, rows, e in (("train", splits[0], eps[0]),
-                          ("test", splits[1], eps[1])):
-        mapping = (_stack_noise(e) if noise is None
-                   else noise[0 if name == "train" else 1])
-        zx, zc, zy = _sample_members(
-            config, case, result, data_train, stack(rows, 0), stack(rows, 1),
-            cond=cond, n=n, slots=(5, 6, 7), seed=seed, noise=mapping,
-            chunk_size=chunk_size, ids=ids)
-        out.update({f"zx_{name}": zx.mean(1), f"zc_{name}": zc.mean(1),
-                    f"zy_{name}": zy.mean(1), f"z_{name}": stack(rows, 3)})
+
+    def make_body(inputs, gens):
+        def body():
+            data_train, probes, eps = [], ([], []), ([], [])
+            for key_gen, gen in zip(gens[0::2], gens[1::2]):
+                data_train.append(sample_response(
+                    case, key_gen, config.n_train, sample_dist=gt,
+                    device=device)[:3])
+                for rows, data in zip(probes, regressor_datasets(
+                        case, gen, n_train_reg, n_test_reg)):
+                    rows.append(data)
+                if draw:
+                    for e, rows in zip(eps, probes):
+                        e.append(_observation_noise(
+                            template, gen, n, rows[-1][0].shape[0], cond,
+                            (5, 6, 7), device))
+            data_train = tuple(stack(data_train, k) for k in range(3))
+            out = []
+            for split, rows, e in zip(_LATENT_SPLITS, probes, eps):
+                zx, zc, zy = sample_fn(
+                    _prefixed(inputs, "p:"), data_train, stack(rows, 0),
+                    stack(rows, 1),
+                    _stack_noise(e) if draw
+                    else _prefixed(inputs, f"noise_{split}_"))
+                out += [zx.mean(1), zc.mean(1), zy.mean(1), stack(rows, 3)]
+            return tuple(out)
+        return body
+
+    sig = ("latents", config, case.fingerprint(), bool(cond), int(n),
+           int(n_train_reg), int(n_test_reg))
+    outs = _run_chunks(sig, args, gens, make_body, len(ids), chunk_size,
+                       graphed)
+    out = dict(zip((f"{b}_{split}" for split in _LATENT_SPLITS
+                    for b in ("zx", "zc", "zy", "z")), outs))
     if mesh is not None:
         out = {k: _gather_members(mesh, member_axis, v, n_members)
                for k, v in out.items()}

@@ -12,11 +12,12 @@ with input scalers that refuse to run, for restoring a checkpoint.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from dpivae_tpu_torch.cases import Case
+from dpivae_tpu_torch.cases import Case, device_constants
 from dpivae_tpu_torch.config import TrainConfig
 from dpivae_tpu_torch.models.decoders import DECODER_X_HIDDEN
 from dpivae_tpu_torch.models.vae import DPIVAE, DPIVAEParams
@@ -68,10 +69,7 @@ def setup_model(config: TrainConfig, case: Case, data_train,
     transform_c = StandardScaler.fit(c_train)
     transform_y = StandardScaler.fit(y_train)
 
-    lb = torch.tensor([p.lb for p in case.prior_x], dtype=torch.float32,
-                      device=device)
-    ub = torch.tensor([p.ub for p in case.prior_x], dtype=torch.float32,
-                      device=device)
+    lb, ub = _prior_bounds(case, x_train)
     if config.model_type == "P":
         output_transform_zx = Chain(Logistic(k=1.0), ShiftScale(lb, ub))
     elif config.model_type == "S":
@@ -133,6 +131,23 @@ def setup_model(config: TrainConfig, case: Case, data_train,
         mc_chunk=mc_chunk,
         **widths,
     )
+
+
+# The z_x prior's bounds by value, each set kept per device and dtype: a
+# tensor made from host data on every call would be a copy from the host,
+# which a CUDA graph cannot hold (the sweeps' sampling graphs run
+# ``setup_model`` inside, under vmap, to fit each member's scalers).
+_BOUNDS: Dict = {}
+
+
+def _prior_bounds(case: Case, like: torch.Tensor):
+    """The (lb, ub) of ``case.prior_x`` as float32 tensors on ``like``'s
+    device."""
+    bounds = tuple(np.asarray([getattr(p, side) for p in case.prior_x],
+                              np.float32) for side in ("lb", "ub"))
+    key = tuple(tuple(b.tolist()) for b in bounds)
+    return device_constants(_BOUNDS.setdefault(key, {}), bounds, like,
+                            torch.float32)
 
 
 def resolve_use_pallas(config: TrainConfig, case: Case, mc_chunk,

@@ -40,6 +40,18 @@ def test_train_split(n_train: int, n_test: int, data,
     return out
 
 
+def _columns(a: torch.Tensor, idx) -> torch.Tensor:
+    """The last-axis columns ``idx`` (a list of ints) of ``a``, taken with
+    no index tensor: indexing with a Python list copies the list from the
+    host, which a captured CUDA graph cannot hold (the sweeps' sampling
+    draws its datasets inside one)."""
+    if not idx:
+        return a[..., :0]
+    if list(idx) == list(range(idx[0], idx[-1] + 1)):
+        return a[..., idx[0]:idx[-1] + 1]
+    return torch.stack([a[..., i] for i in idx], dim=-1)
+
+
 def sample_response(
     case,
     generator: torch.Generator,
@@ -76,10 +88,10 @@ def sample_response(
     x_sample = case.full_model(z_sample)
     x_sample = x_sample + case.sigma_x * randn(x_sample.shape, generator, device)
 
-    c_sample = z_sample[..., idx_c]
+    c_sample = _columns(z_sample, idx_c)
     c_sample = c_sample + case.sigma_c * randn(c_sample.shape, generator, device)
 
-    y_sample = z_sample[..., idx_y]
+    y_sample = _columns(z_sample, idx_y)
     y_sample = y_sample + case.sigma_y * randn(y_sample.shape, generator, device)
 
     return x_sample, c_sample, y_sample, z_sample

@@ -112,6 +112,12 @@ class Chain:
         return z, log_det
 
 
+# MaskedChain's index copies per mask, shared by its instances: a model
+# set up anew inside a captured body (the sweeps' sampling graphs fit each
+# member's scalers there) finds the copy made by an earlier call.
+_MASK_COPIES: dict = {}
+
+
 class MaskedChain:
     """Apply a transform chain only to the listed indices of the last axis;
     the other entries pass through unchanged."""
@@ -119,7 +125,7 @@ class MaskedChain:
     def __init__(self, mask: Sequence[int], *transforms):
         self.mask = tuple(int(i) for i in mask)
         self.chain = Chain(*transforms)
-        self._copies = {}
+        self._copies = _MASK_COPIES.setdefault(self.mask, {})
 
     def _apply(self, z, fn):
         # The index on z's device, copied there once: a copy from host
