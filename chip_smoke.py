@@ -52,7 +52,8 @@ Phases; any failure exits non-zero before the result line:
    use_pallas=True at full width (n_train 1,024, batch 64, 16 MC samples,
    validation of 512 points x 64 MC every 10 iterations, as bench.py
    times it), n_iter cut from 20,000 to 500 (2,000 before the single
-   run of phase 8 joined, 1,000 before phase 15, for the time limit).
+   run of phase 8 joined, 1,000 before phase 15, for the time limit;
+   phase 8 runs the preset's full length).
    The forward kernel must
    launch n_iter + n_iter / val_freq times and the hidden kernel n_iter
    times; every active log row must be finite, the last ELBO_val below
@@ -70,23 +71,33 @@ Phases; any failure exits non-zero before the result line:
    before it and read just after.
 8. The single-run program, ``dpivae_tpu_torch.scripts.single_run``'s
    ``main`` in process, on simple_beam / "dpivae" at full width with the
-   preset's use_pallas="auto", n_iter cut from 20,000 to 1,000, output in
-   a temporary directory under build/: "auto" must pick the kernel on
-   this card; the forward must launch n_iter + n_iter / val_freq times
-   and the hidden kernel n_iter times (the evaluation and the baselines
-   launch neither); every metric CSV must be there with its header and
-   finite values; ``load_model`` of the saved checkpoint must give a
-   Predictor whose eight outputs equal the in-memory model's under the
-   same seed exactly; LIN, GPR, MLP and the VAE must score finite R², MSE
-   and MAE, LIN's R² within 1e-3 of float64 least squares on the same
-   features (the MLP is scikit-learn's fit, ``eval.fit_mlp_sklearn``: its
+   preset's use_pallas="auto", at the preset's own length (20,000
+   iterations) and early stop (patience 200), output in a temporary
+   directory under build/: "auto" must pick the kernel on this card; the
+   forward must launch blocks run x (val_freq + 1) times and the hidden
+   kernel blocks run x val_freq times, the blocks run following the stop
+   iteration (the evaluation and the baselines launch neither); every
+   logged row up to the stop must be finite; the trained model is held
+   against BASELINE.md's anchor of this row (the JAX package's run at the
+   reference's scale: stop 12,971, train / val ELBO -1.006 / -1.121, test
+   y-R² 0.986 against LIN 0.879, GPR 0.988, MLP 0.916): the VAE's test
+   y-R² at least the anchor's less R2_MARGIN, the ELBO_val at the
+   returned params (the stop's validation) within ELBO_TOL of the
+   anchor's, the VAE's R² above LIN's; the stop iteration, both ELBOs and
+   LIN / GPR / MLP are printed beside the anchor's (not checked: the data
+   come from another random stream than JAX's). Every metric CSV must be
+   there with its header and finite values; ``load_model`` of the saved
+   checkpoint must give a Predictor whose eight outputs equal the
+   in-memory model's under the same seed exactly; LIN, GPR, MLP and the
+   VAE must score finite R², MSE and MAE, LIN's R² within 1e-3 of
+   float64 least squares on the same features (the MLP is scikit-learn's fit, ``eval.fit_mlp_sklearn``: its
    epochs printed); ``evaluate_model`` at 512 points x 512 MC must launch
    no forward. The run passes --export_serving: the artifact it wrote,
    loaded on the card, must give the checkpoint's plain Predictor's y at
    seed 0 for the test set. Then ``disentanglement_metric`` with linear
    probes, with the batched ``mlp_jax`` probes (epochs cut from 300 to
    30) and with scikit-learn's ``mlp`` probes (their epochs printed). Each
-   stage's wall time is printed.
+   stage's wall time and the phase's are printed.
 9. The decode's options at bench.py's workload, 200 steps each, each
    after a warm-up run of 20 steps, so that its steps/s compare with phase
    6's warm run: remat_decode with use_pallas=True (the forward launches
@@ -262,8 +273,8 @@ Phases; any failure exits non-zero before the result line:
    ``sweep_sample``, the walls; the member entries' bytes before and
    after an eviction by their bound; and the walls of the study's latents
    stage and the transfer study's predict stages of phases 10 and 12.
-18. Prints a ``{"kernels": [...]}`` line (launches summed over every path)
-   and, last, the device line.
+18. Prints a ``{"kernels": [...]}`` line (launches summed over every path),
+   the script's wall time and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
 1e-5, as in tests/test_pallas_mlp.py. The plain versions are full f32;
@@ -303,7 +314,15 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 TRAIN_TOL = 1e-4
 N_ITER = 500   # cut from the preset's 20,000 for the time limit
 N_ITER_BRIDGE = 500   # cut further for the time limit
-N_ITER_SINGLE_RUN = 1_000   # cut from the preset's 20,000 for the limit
+# Phase 8's single run at the preset's 20,000 iterations, held against
+# BASELINE.md's anchor "simple_beam, S "dpivae"" (the JAX package's run at
+# the reference's scale): the VAE's test y-R² at least the anchor's less
+# R2_MARGIN, the ELBO_val at the returned params within ELBO_TOL of it.
+SINGLE_RUN_ANCHOR = dict(stop=12_971, elbo_train=-1.006, elbo_val=-1.121,
+                         r2={"VAE": 0.986, "LIN": 0.879, "GPR": 0.988,
+                             "MLP": 0.916})
+R2_MARGIN = 0.03
+ELBO_TOL = 0.15
 N_ITER_DECODE_OPTIONS = 200
 N_ITER_WARM = 20   # a warm-up run before each timed options or sweep run
 N_ITER_SWEEP = 300   # bench.py's sweep workload's 2,000, cut for the limit
@@ -1107,6 +1126,42 @@ def _lstsq_r2(data_train, data_test):
     return 1 - ((yt - pred) ** 2).sum(0) / ((yt - yt.mean(0)) ** 2).sum(0)
 
 
+def _against_anchor(run, failures, card):
+    """Phase 8's trained run against SINGLE_RUN_ANCHOR: every logged row
+    up to the stop finite, the VAE's test y-R² at least the anchor's less
+    R2_MARGIN and above LIN's, the ELBO_val at the returned params (the
+    stop's validation) within ELBO_TOL of the anchor's; the rest printed
+    beside the anchor's."""
+    import numpy as np
+
+    logs, a = run.logs, SINGLE_RUN_ANCHOR
+    train = logs.train[logs.train_active]
+    val = logs.val[logs.val_active]
+    finite = bool(torch.isfinite(train).all() and torch.isfinite(val).all())
+    elbo_train = float(logs.scalars("ELBO")[1][-1])
+    elbo_val = float(logs.scalars("ELBO_val")[1][-1])
+    r2 = {("VAE" if k == run.config.name else k): float(
+        np.asarray(m["R2"]).reshape(-1)[0]) for k, m in run.metrics.items()}
+    checks = {
+        f"{len(train)} train and {len(val)} validation rows finite": finite,
+        f"VAE test y-R² {r2['VAE']:.4f} >= {a['r2']['VAE']} - {R2_MARGIN}":
+            r2["VAE"] >= a["r2"]["VAE"] - R2_MARGIN,
+        f"ELBO_val {elbo_val:.4f} within {ELBO_TOL} of {a['elbo_val']}":
+            abs(elbo_val - a["elbo_val"]) <= ELBO_TOL,
+        f"VAE R² above LIN's {r2['LIN']:.4f}": r2["VAE"] > r2["LIN"],
+    }
+    print(f"single run against BASELINE.md's anchor ({card}): " + "; ".join(
+        f"{what} {'ok' if ok else 'MISSED'}" for what, ok in checks.items()))
+    print(f"single run beside the anchor (printed, not checked): stop "
+          f"{logs.stop_iter} (anchor {a['stop']}), train / val ELBO "
+          f"{elbo_train:.4f} / {elbo_val:.4f} (anchor {a['elbo_train']} / "
+          f"{a['elbo_val']}), test y-R² " + ", ".join(
+              f"{k} {r2[k]:.4f} (anchor {a['r2'][k]})"
+              for k in ("VAE", "LIN", "GPR", "MLP")))
+    failures.extend(f"single run against the anchor: {what}"
+                    for what, ok in checks.items() if not ok)
+
+
 def _single_run(ops, failures, card):
     """The single-run program in process (phase 8). Returns the (forward,
     hidden) launches of the run."""
@@ -1120,6 +1175,7 @@ def _single_run(ops, failures, card):
     from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor, load_predictor
     from dpivae_tpu_torch.train.checkpoint import load_model
 
+    phase_t0 = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=root) as out:
@@ -1128,24 +1184,30 @@ def _single_run(ops, failures, card):
         with _EpochRecorder(baselines) as mlp_epochs:
             run = single_run.main([
                 "--case", "simple_beam", "--preset", "dpivae", "--name",
-                "chip_smoke", "--n_iter", str(N_ITER_SINGLE_RUN), "--output",
-                out, "--device", "cuda", "--export_serving"])
+                "chip_smoke", "--output", out, "--device", "cuda",
+                "--export_serving"])
         wall = time.perf_counter() - t0
         launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
         cfg = run.config
-        want = (cfg.n_iter + cfg.n_iter // cfg.val_freq, cfg.n_iter)
+        blocks = _blocks_run(run.logs, cfg)
+        want = _block_launches(blocks, cfg)
         print(f"single run simple_beam / 'dpivae' ({card}): use_pallas "
               f"{cfg.use_pallas!r} resolved to {run.model.use_pallas}; "
-              f"{cfg.n_iter} steps, stopped at {run.logs.stop_iter}; "
-              f"launches fused_mlp_fwd {launches[0]}, fused_mlp_hidden "
-              f"{launches[1]} (expected {want[0]}, {want[1]}); {wall:.2f} s "
-              f"in all")
+              f"n_iter {cfg.n_iter}, patience {cfg.patience}, stopped at "
+              f"{run.logs.stop_iter}, {blocks} blocks run; launches "
+              f"fused_mlp_fwd {launches[0]}, fused_mlp_hidden {launches[1]} "
+              f"(expected {want[0]}, {want[1]}); {wall:.2f} s in all")
         if cfg.use_pallas != "auto" or run.model.use_pallas is not True:
             failures.append("single run: use_pallas='auto' did not pick the "
                             "kernel on this card")
-        if launches != want or run.logs.stop_iter != cfg.n_iter:
+        if cfg.n_iter != 20_000:
+            failures.append(f"single run: n_iter {cfg.n_iter}, not the "
+                            f"preset's 20,000")
+        if launches != want:
             failures.append(f"single run: launches {launches}, expected "
-                            f"{want}, stopped at {run.logs.stop_iter}")
+                            f"{want} for {blocks} blocks, stopped at "
+                            f"{run.logs.stop_iter}")
+        _against_anchor(run, failures, card)
         _check_csvs(run.paths["metrics"], failures)
 
         t0 = time.perf_counter()
@@ -1241,6 +1303,7 @@ def _single_run(ops, failures, card):
                 np.isfinite(r[2]) for r in rows):
             failures.append(f"disentanglement_metric ({regressor}): rows "
                             f"missing or not finite")
+    print(f"phase 8 wall ({card}): {time.perf_counter() - phase_t0:.1f} s")
     return launches, run
 
 
@@ -3689,6 +3752,7 @@ def _graph_inference(ops, failures, card, setups, served, run, sweeps,
 
 
 def main() -> int:
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -3836,6 +3900,8 @@ def main() -> int:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
+    print(f"chip_smoke wall ({card}): "
+          f"{time.perf_counter() - script_t0:.1f} s (limit 1,200 s)")
     serving, train_hidden = results["serving"], hidden["training"]
     source = "dpivae_tpu_torch/csrc/fused_mlp.cu"
     print(json.dumps({"kernels": [{

@@ -26,6 +26,11 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
 N_ITER = 20
+# Ranks against the unsharded one-card run: the data-parallel bounds of
+# tests/test_torch_parallel.py (DP_LOG, DP_PARAM), where the same
+# comparison runs over gloo ranks on the CPU.
+DP_LOG = dict(rtol=2e-4, atol=1e-5)
+DP_PARAM = dict(rtol=5e-3, atol=1e-5)
 
 
 @pytest.fixture
@@ -156,15 +161,19 @@ def _rank_run(rank, world, port, out):
         model = setup_model(cfg, case, data_train, device=device)
         params = init_params(cfg, model, device=device)
         saved = {}
-        for name, cuda_graph in (("warm", True), ("graph", True),
-                                 ("eager", False)):
+        # The unsharded one-card run ("ref"), graphed, on rank 0 alone and
+        # first: the other ranks wait for it at the mesh's first broadcast.
+        runs = ((("ref", True, None),) if rank == 0 else ()) + (
+            ("warm", True, mesh), ("graph", True, mesh),
+            ("eager", False, mesh))
+        for name, cuda_graph, m in runs:
             ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
             g = torch.Generator(device=device).manual_seed(1)
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
             p, logs = train_model(cfg, model, case, data_train, data_val,
                                   params=params, generator=g, device=device,
-                                  mesh=mesh, cuda_graph=cuda_graph)
+                                  mesh=m, cuda_graph=cuda_graph)
             torch.cuda.synchronize(device)
             saved[f"{name}:seconds"] = np.float64(time.perf_counter() - t0)
             saved[f"{name}:launches"] = np.array(
@@ -182,8 +191,14 @@ def test_dp_block_graph_over_every_card(tmp_path):
     """The block graph over a "dp" mesh of every card (at least two; the
     NCCL all-reduces between cards captured): on every rank equal to the
     same mesh's eager loop bit for bit, every rank equal to the others,
-    the early stop at the same block on all. Prints the graphed and the
-    eager run's steps/s (run with -s to see them)."""
+    the early stop at the same block on all, and every rank against the
+    unsharded graphed run on one card within DP_LOG / DP_PARAM, its stop
+    included. Prints the graphed and the eager run's steps/s and the
+    differences from the unsharded run per block (run with -s to see
+    them). On two and on four H100s the stop is the unsharded run's and
+    the rows stay within 1e-5 of it for the first 7 blocks, but in the
+    last two, up to the stop, where the 10x learning rates diverge, they
+    drift past DP_LOG (up to 2.7e-3): an open item of the roadmap."""
     import socket
 
     import numpy as np
@@ -207,6 +222,42 @@ def test_dp_block_graph_over_every_card(tmp_path):
                 np.testing.assert_array_equal(
                     value, r["eager:" + key[6:]], key)
                 np.testing.assert_array_equal(value, first[key], key)
+    # The drift from the unsharded run, printed before it is checked: per
+    # block of training rows, the largest |difference| of rank 0's rows
+    # and the rows outside DP_LOG.
+    got, want = first["graph:log:train"], first["ref:log:train"]
+    vf = 10
+    outside = ~np.isclose(got, want, equal_nan=True, **DP_LOG)
+    print(f"\n{world} ranks against the unsharded run, train rows per "
+          f"block (max |difference|, elements outside DP_LOG): " + ", ".join(
+              f"{b}: {np.nanmax(np.abs(got - want)[b * vf:(b + 1) * vf]):.1e}"
+              f"/{int(outside[b * vf:(b + 1) * vf].sum())}"
+              for b in range(-(-int(active.sum()) // vf))))
+    worst = {"log": 0.0, "p": 0.0}
+    for r in ranks:
+        for f in ("train", "val"):
+            worst["log"] = max(worst["log"], float(np.nanmax(
+                np.abs(r[f"graph:log:{f}"] - first[f"ref:log:{f}"]))))
+        for key, want in first.items():
+            if key.startswith("ref:p:"):
+                worst["p"] = max(worst["p"], float(
+                    np.abs(r["graph:" + key[4:]] - want).max()))
+    print(f"{world} ranks against the unsharded one-card run: logs max abs "
+          f"difference {worst['log']:.3e} (rtol {DP_LOG['rtol']}, atol "
+          f"{DP_LOG['atol']}), params {worst['p']:.3e} (rtol "
+          f"{DP_PARAM['rtol']}, atol {DP_PARAM['atol']})")
+    for r in ranks:
+        for f in ("train_active", "val_active"):
+            np.testing.assert_array_equal(r[f"graph:log:{f}"],
+                                          first[f"ref:log:{f}"], f)
+        for f in ("train", "val"):
+            np.testing.assert_allclose(r[f"graph:log:{f}"],
+                                       first[f"ref:log:{f}"], err_msg=f,
+                                       **DP_LOG)
+        for key, want in first.items():
+            if key.startswith("ref:p:"):
+                np.testing.assert_allclose(r["graph:" + key[4:]], want,
+                                           err_msg=key, **DP_PARAM)
     steps = int(active.sum())
     print(f"{world} ranks, {steps} steps to the stop: graphed "
           + " / ".join(f"{steps / r['graph:seconds']:.1f}" for r in ranks)
