@@ -9,14 +9,19 @@ Phases; any failure exits non-zero before the result line:
    TF32 off so every f32 product of the plain versions is full f32.
 2. Build: compiles ``dpivae_tpu_torch/csrc/fused_mlp.cu`` (both kernels)
    with nvcc for sm_90a into ``build/dpivae_tpu_torch/`` and prints the
-   build time and ptxas's register/shared-memory report.
+   build time and ptxas's register/shared-memory report, then one line of
+   it for the forward's staged (wgmma) path: each instance's registers and
+   spills, and how many ptxas serialized.
 3. Kernels vs plain, on the same CUDA inputs, both timed by CUDA events:
    the fused-MLP forward kernel at the serving shape (512 requests x 512
    MC samples = 262,144 rows x (4 -> 128 -> 32)), the validation shape
    (512 points x 64 MC), the training shape (64 x 16 MC), the same three
    at the damped_oscillator and bridge widths (8 -> 128 -> 64), the
-   figures' decodes (2,000 rows at both widths), a ragged row count, the row counts on either side of the forward's switch from
-   its split to its staged path, and hidden 256, 512 and 1,024, each with
+   figures' decodes (2,000 rows at both widths), a ragged row count, the
+   row counts on either side of the forward's switch from its split to its
+   staged path, the staged path's edges (a ragged last 64-row tile, three
+   members with per-member strides, x at a 4-byte offset, which takes the
+   split path), and hidden 256, 512 and 1,024, each with
    two least-time bounds (layer 2 in f32 on the CUDA cores, and on the
    TF32 tensor cores in three passes) and, at the serving, validation and
    training shapes, beside the two-call cuBLASLt pair
@@ -294,6 +299,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -396,8 +402,10 @@ GRID_SAMPLING_CHUNK = 5
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 HBM_BYTES_PER_S = 3.35e12
-# (rows, d_in, d_hidden, d_out); "serving" and "training" are the shapes of
-# the serving and training paths.
+# (rows, d_in, d_hidden, d_out[, options]); "serving" and "training" are
+# the shapes of the serving and training paths. Options: members (weights
+# stacked over a member axis, one launch) and offset (x a contiguous view
+# that many floats into its buffer).
 SHAPES = {
     "serving": (262_144, 4, 128, 32),
     "validation": (32_768, 4, 128, 32),
@@ -415,6 +423,13 @@ SHAPES = {
     # its staged path
     "split_edge": (8_192, 4, 128, 32),
     "staged_edge": (16_384, 4, 128, 32),
+    # the staged path's edges: a ragged last 64-row tile; three members
+    # with weights of their own (per-member strides); x a contiguous view
+    # 4 bytes on, which its 16-byte loads cannot take (the launcher's split
+    # path)
+    "staged_ragged": (16_384 + 37, 4, 128, 32),
+    "members3": (16_411, 4, 128, 32, dict(members=3)),
+    "x_offset": (16_384, 4, 128, 32, dict(offset=1)),
     "hidden256": (65_536, 4, 256, 32),
     # hidden widths of the scaling study: H = 512 on the staged path;
     # H = 1,024, whose staged weights exceed one block's shared memory, on
@@ -441,6 +456,29 @@ HIDDEN_SHAPES = {
     "ragged": (1_000, 4, 128),
     "hidden256": (65_536, 4, 256),
 }
+
+
+def _staged_ptxas_summary(log: str) -> str:
+    """One line from ptxas's report (-Xptxas -v) on the forward's staged
+    path: each template instance's registers, spills and whether ptxas
+    serialized its wgmma."""
+    if not log:
+        return "staged forward (wgmma), ptxas: no report (a cached build)"
+    parts, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"fused_mlp_fwd_kernel_wgmmaILi(\d+)ELi(\d+)E", line)
+            entry = m and f"d_in bucket {m[1]} N {m[2]}"
+        elif entry and "spill stores" in line:
+            spills = line.split(",")[1].strip()
+        elif entry and "Used" in line:
+            used = re.search(r"Used (\d+) registers", line)[1]
+            parts.append(f"{entry}: {used} registers, {spills}")
+            entry = None
+    serialized = sum("C7514" in line and "wgmma" in line
+                     for line in log.splitlines())
+    return (f"staged forward (wgmma), ptxas: {'; '.join(parts)}; wgmma "
+            f"serialized in {serialized} instances")
 
 
 def _card() -> str:
@@ -609,13 +647,31 @@ def _backward_vs_plain(ops, failures):
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
 
 
+def _shape_args(spec, seed):
+    """A SHAPES entry's inputs (x, w0, b0, w1, b1) on the card, and its
+    member count."""
+    rows, d_in, d_hidden, d_out = spec[:4]
+    opts = spec[4] if len(spec) > 4 else {}
+    m = opts.get("members", 1)
+    lead = (m,) if m > 1 else ()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g, device="cuda")
+    args = [f(*lead, rows, d_in), f(*lead, d_hidden, d_in) * 0.3,
+            f(*lead, d_hidden) * 0.1,
+            f(*lead, d_out, d_hidden) * _w1_scale(d_hidden),
+            f(*lead, d_out) * 0.1]
+    off = opts.get("offset", 0)
+    if off:
+        buf = torch.empty(args[0].numel() + off, device="cuda")
+        args[0] = buf[off:].view_as(args[0]).copy_(args[0])
+    return args, m
+
+
 def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
     results = {}
-    for i, (name, (rows, d_in, d_hidden, d_out)) in enumerate(SHAPES.items()):
-        g = torch.Generator(device="cuda").manual_seed(SEED + i)
-        f = lambda *s: torch.randn(s, generator=g, device="cuda")
-        args = (f(rows, d_in), f(d_hidden, d_in) * 0.3, f(d_hidden) * 0.1,
-                f(d_out, d_hidden) * _w1_scale(d_hidden), f(d_out) * 0.1)
+    for i, (name, spec) in enumerate(SHAPES.items()):
+        rows, d_in, d_hidden, d_out = spec[:4]
+        args, m = _shape_args(spec, SEED + i)
         with torch.inference_mode():
             got = fused_mlp(*args)
             want = fused_mlp_reference(*args)
@@ -634,15 +690,22 @@ def _kernel_vs_plain(fused_mlp, fused_mlp_reference, failures):
                                     f"at {name}: its time is not of the same "
                                     f"function")
                 pair_ms = _device_ms(lambda: _forward_library(*args))
-        (f32_ms, f32_by), (bound_ms, bound_by) = _bound_ms(
-            rows, d_in, d_hidden, d_out)
-        print(f"kernel {name} {rows}x({d_in}->{d_hidden}->{d_out}): "
+        if m > 1:
+            bound_ms, bound_by = _batched_bound_ms(m, rows, d_in, d_hidden,
+                                                   d_out)
+            f32_note = ""
+        else:
+            (f32_ms, f32_by), (bound_ms, bound_by) = _bound_ms(
+                rows, d_in, d_hidden, d_out)
+            f32_note = f", f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by})"
+        print(f"kernel {name} {f'{m} x ' if m > 1 else ''}"
+              f"{rows}x({d_in}->{d_hidden}->{d_out}): "
               f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
               f"(rtol {RTOL} atol {ATOL}) {'ok' if ok else 'MISMATCH'}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}; layer 2 3xTF32 on the "
-              f"tensor cores, {100 * bound_ms / ms:.1f} % of it reached), "
-              f"f32 CUDA-core bound {f32_ms:.4f} ms ({f32_by})")
+              f"tensor cores, {100 * bound_ms / ms:.1f} % of it reached)"
+              f"{f32_note}")
         if name in PAIR_SHAPES:
             print(f"  yardstick {name}: cuBLASLt pair (_addmm_activation + "
                   f"addmm, max_abs_err {lib_abs:.3e}) {pair_ms:.4f} ms "
@@ -3771,14 +3834,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
         if ("registers" in line or "spill" in line or "smem" in line
-                or "Compiling entry" in line):
+                or "Compiling entry" in line or "C75" in line):
             print(f"  ptxas: {line.strip()}")
+    print(_staged_ptxas_summary(log))
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = ops._library()
-    print("staged forward, shared memory per block at d_in 4: " + ", ".join(
-        f"H {h} {lib.fused_mlp_fwd_smem_bytes(4, h)} B" for h in (128, 512, 1024))
-        + f" (limit {limit} B; above it the split path runs)")
+    sizes = ", ".join(f"H {h} {lib.fused_mlp_fwd_smem_bytes(4, h)} B"
+                      for h in (128, 512, 1024))
+    print(f"staged forward, shared memory per block at d_in 4, d_out 32: "
+          f"{sizes} (limit {limit} B; above it the split path runs)")
 
     results = _kernel_vs_plain(ops.fused_mlp, ops.fused_mlp_reference,
                                failures)

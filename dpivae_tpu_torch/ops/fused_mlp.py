@@ -158,12 +158,12 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> Tuple[Path, str]:
-    """Compile ``csrc/fused_mlp.cu`` into a shared library, unless one built
-    from the same source and flags exists. Returns (library path, compiler
-    output; empty when nothing was built)."""
+def build_library(source: Path = SOURCE) -> Tuple[Path, str]:
+    """Compile ``source`` (``csrc/fused_mlp.cu``) into a shared library,
+    unless one built from the same source and flags exists. Returns
+    (library path, compiler output; empty when nothing was built)."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        Path(source).read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libfused_mlp_{digest}.so"
     if lib_path.exists():
@@ -173,12 +173,12 @@ def build_library() -> Tuple[Path, str]:
     # half-written library.
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed to build {SOURCE} (exit {proc.returncode}):\n"
+            f"nvcc failed to build {source} (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, lib_path)
@@ -187,7 +187,12 @@ def build_library() -> Tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _ = build_library()
+    return bind_library(build_library()[0])
+
+
+def bind_library(path) -> ctypes.CDLL:
+    """Load a library built by ``build_library`` and declare its C entry
+    points' arguments."""
     lib = ctypes.CDLL(str(path))
     ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     # rows, d_in, d_hidden, d_out, members and six member strides

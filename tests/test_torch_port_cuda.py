@@ -186,15 +186,44 @@ def test_wide_layers_run(device, lead, d_in, d_hidden, d_out):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("rows", [1_024, 8_192, 16_384, 32_768])
+# (rows, d_in, d_hidden, d_out, members, x's offset in floats)
+PATH_CASES = [
+    (1_024, 4, 128, 32, 1, 0),
+    (8_192, 4, 128, 32, 1, 0),
+    (16_384, 4, 128, 32, 1, 0),
+    (32_768, 4, 128, 32, 1, 0),
+    (16_384 + 37, 4, 128, 32, 1, 0),   # a ragged last 64-row tile
+    (32_768, 8, 128, 64, 1, 0),        # d_out 64: one tile of the tiled path
+    (16_411, 4, 128, 32, 3, 0),        # the member axis, per-member strides
+    (16_384, 4, 128, 32, 1, 1),        # x a contiguous view 4 bytes on
+]
+
+
+@pytest.mark.parametrize("rows, d_in, d_hidden, d_out, members, offset",
+                         PATH_CASES)
 @pytest.mark.parametrize("staged", [False, True])
-def test_both_paths_match_plain(device, rows, staged):
-    """Either forward path, forced, at row counts on both sides of the
-    launcher's switch between them."""
-    args = _inputs(device, (rows,), 4, 128, 32)
-    torch.testing.assert_close(fused_mlp_on_path(*args, staged=staged),
-                               fused_mlp_reference(*args),
-                               rtol=1e-5, atol=1e-5)
+def test_both_paths_match_plain(device, rows, d_in, d_hidden, d_out, members,
+                                offset, staged):
+    """Either forward path, forced, and the launcher's own choice, at row
+    counts on both sides of the switch between them, a ragged last tile,
+    d_out 64, members with weights of their own, and x at a 4-byte offset.
+    The tiled path's 16-byte loads and bulk copies need 16-byte alignment:
+    forced onto that x it is refused, and the launcher takes the split
+    path for it."""
+    each = [_inputs(device, (rows,), d_in, d_hidden, d_out, seed=m)
+            for m in range(members)]
+    args = [torch.stack(a) if members > 1 else a[0] for a in zip(*each)]
+    if offset:
+        x = torch.empty(args[0].numel() + offset, device=device)
+        args[0] = x[offset:].view_as(args[0]).copy_(args[0])
+    want = fused_mlp_reference(*args)
+    if offset and staged:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mlp_on_path(*args, staged=True)
+    else:
+        torch.testing.assert_close(fused_mlp_on_path(*args, staged=staged),
+                                   want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(fused_mlp(*args), want, rtol=1e-5, atol=1e-5)
 
 
 def test_cnn_encoder_matches_float64_with_cudnn_tf32_on(device):

@@ -172,6 +172,28 @@ def test_tf32_emulation_rounds_to_nearest_ties_away():
     assert ((_tf32(x) - x).abs() <= x.abs() * 2.0 ** -11).all()
 
 
+def _split_layer2(h, w1, b1, k_group=8):
+    """Layer 2 of the forward kernel in the 3xTF32 split, on an f32 model:
+    h and W1 split into hi = tf32(v) (rounded) and lo = v - hi (read
+    truncated to TF32 by the tensor cores); the cross terms lo*hi + hi*lo
+    of every 8-wide k step chained into one f32 sum (small), the hi*hi
+    products of each k_group hidden units summed from zero and added to an
+    f32 total that starts at b1 (big). Products of two TF32 values are
+    exact in f32. Returns (big, small)."""
+    h_hi, w_hi = _tf32(h), _tf32(w1)
+    h_lo, w_lo = _tf32_truncated(h - h_hi), _tf32_truncated(w1 - w_hi)
+    big = b1.expand(h.shape[0], w1.shape[1]).clone()
+    small = torch.zeros_like(big)
+    for k in range(0, h.shape[1], 8):
+        s = slice(k, k + 8)
+        small += h_lo[:, s] @ w_hi[s]
+        small += h_hi[:, s] @ w_lo[s]
+    for k in range(0, h.shape[1], k_group):
+        s = slice(k, k + k_group)
+        big += h_hi[:, s] @ w_hi[s]
+    return big, small
+
+
 def test_3xtf32_split_meets_f32_tolerance_and_one_pass_does_not():
     """The forward kernel's layer 2 emulated on the CPU: h and W1 split into
     hi = tf32(v) (rounded) and lo = v - hi (read truncated to TF32 by the
@@ -184,20 +206,29 @@ def test_3xtf32_split_meets_f32_tolerance_and_one_pass_does_not():
     x, w0, b0, w1, b1 = (_t(a) for a in _mlp_inputs((2048,)))
     h = torch.relu(x @ w0 + b0)   # layer 1 in f32, as in the kernel
     want = h.double() @ w1.double() + b1.double()
-    h_hi, w_hi = _tf32(h), _tf32(w1)
-    h_lo, w_lo = _tf32_truncated(h - h_hi), _tf32_truncated(w1 - w_hi)
-    big = b1.expand(2048, 32).clone()
-    small = torch.zeros(2048, 32)
-    for k in range(0, 128, 8):
-        s = slice(k, k + 8)
-        small += h_lo[:, s] @ w_hi[s]
-        small += h_hi[:, s] @ w_lo[s]
-        big += h_hi[:, s] @ w_hi[s]
+    big, small = _split_layer2(h, w1, b1)
     split, one_pass = big + small, big
     assert torch.allclose(split.double(), want, rtol=RTOL, atol=ATOL)
     assert float((split.double() - want).abs().max()) < 1e-5
     assert not torch.allclose(one_pass.double(), want, rtol=RTOL, atol=ATOL)
     assert float((one_pass.double() - want).abs().max()) > 1e-3
+
+
+# The hi*hi groupings the forward kernel sums from zero: one 8-wide k step
+# (a wgmma or mma.sync k8 step), on both paths.
+@pytest.mark.parametrize("k_group", [8])
+def test_3xtf32_accumulation_meets_float64_at_h256(k_group):
+    """The forward kernel's layer-2 accumulation on the f32 model of
+    ``_split_layer2`` at 2,048 x (4 -> 256 -> 32) with W1 at scale 0.3, so
+    that outputs spread as sqrt(H) (chip_smoke.py's float64 check holds
+    the kernel itself there): within rtol/atol 1e-5 of float64."""
+    x, w0, b0, w1, b1 = (_t(a) for a in _mlp_inputs((2048,), d_hidden=256))
+    h = torch.relu(x @ w0 + b0)
+    want = h.double() @ w1.double() + b1.double()
+    big, small = _split_layer2(h, w1, b1, k_group)
+    got = (big + small).double()
+    assert torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert float((got - want).abs().max()) < 1e-5
 
 
 def _tril(rng, lead, d):
