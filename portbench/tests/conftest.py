@@ -1,0 +1,9 @@
+"""The benchmark's own tests put the repository's root on the path, so
+that ``portbench`` and the port import from a checkout."""
+
+import sys
+from pathlib import Path
+
+ROOT = str(Path(__file__).resolve().parents[2])
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
