@@ -21,7 +21,10 @@ A member's identity (``SweepResult.keys``) is its (seed, id) pair: the
 JAX package's per-member PRNG key. Chunks persist under ``checkpoint_dir``
 named by a digest of the sweep's identity, as in the JAX package
 (``_sweep_manifest``), so a rerun resumes completed chunks and never
-another sweep's.
+another sweep's. While ``utils.spans`` records, a sweep is one ``job``
+span and each chunk a ``sweep.chunk`` span, with ``sweep.member_starts``
+(the members' generators, data and initial weights) and the chunk's
+training under it.
 
 With a ``mesh`` (``parallel.make_mesh``) the members are split over its
 ``member_axis`` ("sweep"), as in the JAX package: the trainers pad them
@@ -89,6 +92,7 @@ from dpivae_tpu_torch.utils import (
     graph_cache,
     randn,
     resolve_device,
+    spans,
 )
 from dpivae_tpu_torch.utils.data import sample_response
 
@@ -523,35 +527,36 @@ def _chunked_execute(run_chunk: Callable, n_members: int, chunk_size: int,
     starts = range(0, n_members, chunk_size)
     chunks, t0 = [], time.perf_counter()
     for i, start in enumerate(starts):
-        sl = slice(start, min(start + chunk_size, n_members))
-        n_in = sl.stop - sl.start
-        path = (None if checkpoint_dir is None
-                else os.path.join(checkpoint_dir,
-                                  f"chunk_{digest12}_{start:06d}.npz"))
-        out = None
-        if path is not None and os.path.exists(path):
-            out = _load_chunk(path, n_in)
+        with spans.span("sweep.chunk"):
+            sl = slice(start, min(start + chunk_size, n_members))
+            n_in = sl.stop - sl.start
+            path = (None if checkpoint_dir is None
+                    else os.path.join(checkpoint_dir,
+                                      f"chunk_{digest12}_{start:06d}.npz"))
+            out = None
+            if path is not None and os.path.exists(path):
+                out = _load_chunk(path, n_in)
+                if out is None:
+                    _progress(f"{label} checkpoint {path} holds another "
+                              "member count; recomputing this chunk")
+                elif len(starts) > 1:
+                    _progress(f"[{label}] chunk {i + 1}/{len(starts)} "
+                              "resumed from checkpoint")
             if out is None:
-                _progress(f"{label} checkpoint {path} holds another member "
-                          "count; recomputing this chunk")
-            elif len(starts) > 1:
-                _progress(f"[{label}] chunk {i + 1}/{len(starts)} resumed "
-                          "from checkpoint")
-        if out is None:
-            params, logs = run_chunk(sl)
-            if hosted:
-                params = {k: v.cpu() for k, v in params.items()}
-                logs = TrainLogs(*(a.cpu() for a in logs))
-                if path is not None:
-                    _save_chunk(path, params, logs)
-            out = (params, logs)
-            if len(starts) > 1:
-                _progress(f"[{label}] chunk {i + 1}/{len(starts)} done "
-                          f"({sl.stop}/{n_members} members, "
-                          f"{time.perf_counter() - t0:.1f}s)")
-        if chunk_callback is not None:
-            chunk_callback(start, *out)
-        chunks.append(out)
+                params, logs = run_chunk(sl)
+                if hosted:
+                    params = {k: v.cpu() for k, v in params.items()}
+                    logs = TrainLogs(*(a.cpu() for a in logs))
+                    if path is not None:
+                        _save_chunk(path, params, logs)
+                out = (params, logs)
+                if len(starts) > 1:
+                    _progress(f"[{label}] chunk {i + 1}/{len(starts)} done "
+                              f"({sl.stop}/{n_members} members, "
+                              f"{time.perf_counter() - t0:.1f}s)")
+            if chunk_callback is not None:
+                chunk_callback(start, *out)
+            chunks.append(out)
     params = {k: torch.cat([c[0][k] for c in chunks])
               for k in chunks[0][0]}
     logs = TrainLogs(*(torch.cat([c[1][j] for c in chunks])
@@ -572,22 +577,25 @@ def _run_members(config: TrainConfig, case: Case, lambdas: np.ndarray,
                                      cuda_graph=cuda_graph)
 
     def run(sl):
-        gens = _generators(keys[sl], device)
-        starts = []
-        for j, g in enumerate(gens):
-            given = None
-            if data is not None:
-                given = tuple(tuple(a[sl.start + j] for a in d[:3])
-                              for d in data)
-            starts.append(_member_start(config, case, template, g, given))
-        stack = lambda k: tuple(torch.stack([torch.as_tensor(
-            s[k][c], dtype=torch.float32, device=device) for s in starts])
-            for c in range(3))
-        lam = torch.as_tensor(lambdas[sl], device=device)
-        hyp = ({f: torch.as_tensor(v[sl], device=device)
-                for f, v in hyper.items()} if hyper else None)
-        return train_fn(stack_params([s[2] for s in starts]), gens,
-                        stack(0), stack(1), lam, hyp)
+        with spans.span("sweep.member_starts"):
+            gens = _generators(keys[sl], device)
+            starts = []
+            for j, g in enumerate(gens):
+                given = None
+                if data is not None:
+                    given = tuple(tuple(a[sl.start + j] for a in d[:3])
+                                  for d in data)
+                starts.append(_member_start(config, case, template, g,
+                                            given))
+            stack = lambda k: tuple(torch.stack([torch.as_tensor(
+                s[k][c], dtype=torch.float32, device=device)
+                for s in starts]) for c in range(3))
+            params = stack_params([s[2] for s in starts])
+            data_train, data_val = stack(0), stack(1)
+            lam = torch.as_tensor(lambdas[sl], device=device)
+            hyp = ({f: torch.as_tensor(v[sl], device=device)
+                    for f, v in hyper.items()} if hyper else None)
+        return train_fn(params, gens, data_train, data_val, lam, hyp)
 
     return run
 
@@ -639,31 +647,35 @@ def train_sweep(
     Returns:
         SweepResult ordered λ-major (member = i_lambda * n_runs + i_run).
     """
-    _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
-    if gc_stale_chunks and checkpoint_dir is None:
-        raise ValueError("gc_stale_chunks requires checkpoint_dir")
-    device = _sweep_device(mesh, device)
-    config = member_config(config)
-    seed = config.seed if seed is None else int(seed)
-    lam = np.repeat(np.asarray(lambdas, np.float32).reshape(-1), n_runs)
-    n_members = lam.shape[0]
-    keys = _keys(seed, np.arange(n_members))
-    if mesh is not None:
-        params, logs = _sharded_members(config, case, mesh, member_axis, lam,
-                                        keys, device, chunk_size,
-                                        cuda_graph=cuda_graph)
+    with spans.job("train_sweep") as job:
+        _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
+        if gc_stale_chunks and checkpoint_dir is None:
+            raise ValueError("gc_stale_chunks requires checkpoint_dir")
+        device = _sweep_device(mesh, device)
+        config = member_config(config)
+        seed = config.seed if seed is None else int(seed)
+        lam = np.repeat(np.asarray(lambdas, np.float32).reshape(-1), n_runs)
+        n_members = lam.shape[0]
+        if job is not None:
+            job.set(members=n_members, n_iter=config.n_iter)
+        keys = _keys(seed, np.arange(n_members))
+        if mesh is not None:
+            params, logs = _sharded_members(
+                config, case, mesh, member_axis, lam, keys, device,
+                chunk_size, cuda_graph=cuda_graph)
+            return SweepResult(params, logs, lam, keys, str(device))
+        chunk_size = _chunk(chunk_size, n_members, config, case, device)
+        params, logs = _chunked_execute(
+            _run_members(config, case, lam, keys, device,
+                         cuda_graph=cuda_graph),
+            n_members, chunk_size,
+            checkpoint_dir, chunk_callback,
+            manifest=(_sweep_manifest(config, case, (keys, lam), n_members,
+                                      chunk_size, flavor=("lambda-sweep",
+                                                          device.type))
+                      if checkpoint_dir is not None else None),
+            label="sweep", gc_stale_chunks=gc_stale_chunks)
         return SweepResult(params, logs, lam, keys, str(device))
-    chunk_size = _chunk(chunk_size, n_members, config, case, device)
-    params, logs = _chunked_execute(
-        _run_members(config, case, lam, keys, device, cuda_graph=cuda_graph),
-        n_members, chunk_size,
-        checkpoint_dir, chunk_callback,
-        manifest=(_sweep_manifest(config, case, (keys, lam), n_members,
-                                  chunk_size, flavor=("lambda-sweep",
-                                                      device.type))
-                  if checkpoint_dir is not None else None),
-        label="sweep", gc_stale_chunks=gc_stale_chunks)
-    return SweepResult(params, logs, lam, keys, str(device))
 
 
 def train_hyper_sweep(
@@ -698,53 +710,56 @@ def train_hyper_sweep(
             gc_stale_chunks, device, member_axis, cuda_graph: as in
             ``train_sweep`` (the digest covers the grid).
     """
-    _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
-    if gc_stale_chunks and checkpoint_dir is None:
-        raise ValueError("gc_stale_chunks requires checkpoint_dir")
-    fields = tuple(sorted(grid))
-    if not fields:
-        raise ValueError("grid must contain at least one field")
-    bad = set(fields) - TRACEABLE_HYPER_FIELDS
-    if bad:
-        raise ValueError(f"{sorted(bad)} cannot be swept per member; "
-                         f"allowed: {sorted(TRACEABLE_HYPER_FIELDS)}")
-    cols = [np.asarray(grid[f], np.float32).reshape(-1) for f in fields]
-    n_rows = cols[0].shape[0]
-    for f, c in zip(fields, cols):
-        if c.shape[0] != n_rows:
-            raise ValueError(f"grid column {f!r} has {c.shape[0]} values, "
-                             f"expected {n_rows}")
-    if lambdas is None:
-        lam_rows = np.full(n_rows, config.lambda_g0, np.float32)
-    else:
-        lam_rows = np.asarray(lambdas, np.float32).reshape(-1)
-        if lam_rows.shape[0] != n_rows:
-            raise ValueError("lambdas must match the grid length")
-    rep = lambda a: np.repeat(a, n_runs, axis=0)
-    grid_out = {f: rep(c) for f, c in zip(fields, cols)}
-    lam = rep(lam_rows)
-    n_members = n_rows * n_runs
-    device = _sweep_device(mesh, device)
-    config = member_config(config)
-    seed = config.seed if seed is None else int(seed)
-    keys = _keys(seed, np.tile(np.arange(n_runs), n_rows))
-    if mesh is not None:
-        params, logs = _sharded_members(config, case, mesh, member_axis, lam,
-                                        keys, device, chunk_size,
-                                        hyper=grid_out, cuda_graph=cuda_graph)
-        return HyperSweepResult(params, logs, grid_out, lam, keys,
-                                str(device))
-    chunk_size = _chunk(chunk_size, n_members, config, case, device)
-    params, logs = _chunked_execute(
-        _run_members(config, case, lam, keys, device, hyper=grid_out,
-                     cuda_graph=cuda_graph),
-        n_members, chunk_size, checkpoint_dir, chunk_callback,
-        manifest=(_sweep_manifest(
-            config, case, (keys, lam, *grid_out.values()), n_members,
-            chunk_size, flavor=("hyper-sweep", fields, device.type))
-            if checkpoint_dir is not None else None),
-        label="hyper-sweep", gc_stale_chunks=gc_stale_chunks)
-    return HyperSweepResult(params, logs, grid_out, lam, keys, str(device))
+    with spans.job("train_hyper_sweep") as job:
+        _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
+        if gc_stale_chunks and checkpoint_dir is None:
+            raise ValueError("gc_stale_chunks requires checkpoint_dir")
+        fields = tuple(sorted(grid))
+        if not fields:
+            raise ValueError("grid must contain at least one field")
+        bad = set(fields) - TRACEABLE_HYPER_FIELDS
+        if bad:
+            raise ValueError(f"{sorted(bad)} cannot be swept per member; "
+                             f"allowed: {sorted(TRACEABLE_HYPER_FIELDS)}")
+        cols = [np.asarray(grid[f], np.float32).reshape(-1) for f in fields]
+        n_rows = cols[0].shape[0]
+        for f, c in zip(fields, cols):
+            if c.shape[0] != n_rows:
+                raise ValueError(f"grid column {f!r} has {c.shape[0]} values, "
+                                 f"expected {n_rows}")
+        if lambdas is None:
+            lam_rows = np.full(n_rows, config.lambda_g0, np.float32)
+        else:
+            lam_rows = np.asarray(lambdas, np.float32).reshape(-1)
+            if lam_rows.shape[0] != n_rows:
+                raise ValueError("lambdas must match the grid length")
+        rep = lambda a: np.repeat(a, n_runs, axis=0)
+        grid_out = {f: rep(c) for f, c in zip(fields, cols)}
+        lam = rep(lam_rows)
+        n_members = n_rows * n_runs
+        if job is not None:
+            job.set(members=n_members, n_iter=config.n_iter)
+        device = _sweep_device(mesh, device)
+        config = member_config(config)
+        seed = config.seed if seed is None else int(seed)
+        keys = _keys(seed, np.tile(np.arange(n_runs), n_rows))
+        if mesh is not None:
+            params, logs = _sharded_members(
+                config, case, mesh, member_axis, lam, keys, device,
+                chunk_size, hyper=grid_out, cuda_graph=cuda_graph)
+            return HyperSweepResult(params, logs, grid_out, lam, keys,
+                                    str(device))
+        chunk_size = _chunk(chunk_size, n_members, config, case, device)
+        params, logs = _chunked_execute(
+            _run_members(config, case, lam, keys, device, hyper=grid_out,
+                         cuda_graph=cuda_graph),
+            n_members, chunk_size, checkpoint_dir, chunk_callback,
+            manifest=(_sweep_manifest(
+                config, case, (keys, lam, *grid_out.values()), n_members,
+                chunk_size, flavor=("hyper-sweep", fields, device.type))
+                if checkpoint_dir is not None else None),
+            label="hyper-sweep", gc_stale_chunks=gc_stale_chunks)
+        return HyperSweepResult(params, logs, grid_out, lam, keys, str(device))
 
 
 def train_sweep_data(
@@ -770,42 +785,46 @@ def train_sweep_data(
     chunking, checkpoints, ``mesh`` and ``cuda_graph`` as in
     ``train_sweep`` (the digest covers the datasets), except that with a
     mesh the member count must divide by the ``member_axis`` size."""
-    _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
-    if gc_stale_chunks and checkpoint_dir is None:
-        raise ValueError("gc_stale_chunks requires checkpoint_dir")
-    lam = np.asarray(lambdas, np.float32).reshape(-1)
-    n_members = lam.shape[0]
-    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
-                       else np.asarray(a, np.float32))
-    data_train = tuple(as_np(a) for a in data_train[:3])
-    data_val = tuple(as_np(a) for a in data_val[:3])
-    for a in (*data_train, *data_val):
-        if a.shape[0] != n_members:
-            raise ValueError("data member axis must match len(lambdas)")
-    device = _sweep_device(mesh, device)
-    config = member_config(config)
-    seed = config.seed if seed is None else int(seed)
-    keys = _keys(seed, np.arange(n_members))
-    if mesh is not None:
-        if n_members % mesh.shape[member_axis]:
-            raise ValueError("pad members to a multiple of the mesh axis "
-                             "for train_sweep_data")
-        params, logs = _sharded_members(config, case, mesh, member_axis, lam,
-                                        keys, device, chunk_size,
-                                        data=(data_train, data_val),
-                                        cuda_graph=cuda_graph)
+    with spans.job("train_sweep_data") as job:
+        _refuse_chunk_io(mesh, checkpoint_dir, chunk_callback)
+        if gc_stale_chunks and checkpoint_dir is None:
+            raise ValueError("gc_stale_chunks requires checkpoint_dir")
+        lam = np.asarray(lambdas, np.float32).reshape(-1)
+        n_members = lam.shape[0]
+        if job is not None:
+            job.set(members=n_members, n_iter=config.n_iter)
+        as_np = lambda a: (a.detach().cpu().numpy()
+                           if isinstance(a, torch.Tensor)
+                           else np.asarray(a, np.float32))
+        data_train = tuple(as_np(a) for a in data_train[:3])
+        data_val = tuple(as_np(a) for a in data_val[:3])
+        for a in (*data_train, *data_val):
+            if a.shape[0] != n_members:
+                raise ValueError("data member axis must match len(lambdas)")
+        device = _sweep_device(mesh, device)
+        config = member_config(config)
+        seed = config.seed if seed is None else int(seed)
+        keys = _keys(seed, np.arange(n_members))
+        if mesh is not None:
+            if n_members % mesh.shape[member_axis]:
+                raise ValueError("pad members to a multiple of the mesh axis "
+                                 "for train_sweep_data")
+            params, logs = _sharded_members(
+                config, case, mesh, member_axis, lam, keys, device,
+                chunk_size, data=(data_train, data_val),
+                cuda_graph=cuda_graph)
+            return SweepResult(params, logs, lam, keys, str(device))
+        chunk_size = _chunk(chunk_size, n_members, config, case, device)
+        params, logs = _chunked_execute(
+            _run_members(config, case, lam, keys, device,
+                         data=(data_train, data_val), cuda_graph=cuda_graph),
+            n_members, chunk_size, checkpoint_dir, chunk_callback,
+            manifest=(_sweep_manifest(
+                config, case, (keys, lam, *data_train, *data_val), n_members,
+                chunk_size, flavor=("data-sweep", device.type))
+                if checkpoint_dir is not None else None),
+            label="data-sweep", gc_stale_chunks=gc_stale_chunks)
         return SweepResult(params, logs, lam, keys, str(device))
-    chunk_size = _chunk(chunk_size, n_members, config, case, device)
-    params, logs = _chunked_execute(
-        _run_members(config, case, lam, keys, device,
-                     data=(data_train, data_val), cuda_graph=cuda_graph),
-        n_members, chunk_size, checkpoint_dir, chunk_callback,
-        manifest=(_sweep_manifest(
-            config, case, (keys, lam, *data_train, *data_val), n_members,
-            chunk_size, flavor=("data-sweep", device.type))
-            if checkpoint_dir is not None else None),
-        label="data-sweep", gc_stale_chunks=gc_stale_chunks)
-    return SweepResult(params, logs, lam, keys, str(device))
 
 
 # ----------------------------------------------------------------------

@@ -41,17 +41,25 @@ does not run. ``Graphed`` takes back what the capture added to the counts
 and adds it again on every replay, so the counts stay those of an eager
 run.
 
+While ``utils.spans`` records, ``Graphed`` records the spans
+``graph.capture`` (with the graph's kernel and memcpy nodes, counted
+inside the capture by ``kernel_nodes``) and ``graph.replay`` (with a CUDA
+event pair on the stream), and counts captures, replays and those
+nodes.
+
 ``resolve_cuda_graph`` resolves a ``cuda_graph`` argument, a trainer's
 or an inference call's: "auto" is True on CUDA, with or without a mesh.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Iterable, Optional
 
 import torch
 
 from dpivae_tpu_torch.ops import fused_mlp as _ops
+from dpivae_tpu_torch.utils import spans
 
 _COUNTED = (_ops.fused_mlp, _ops.fused_mlp_hidden)
 
@@ -76,6 +84,50 @@ def resolve_cuda_graph(cuda_graph, device: Optional[torch.device],
 
 def _counts():
     return [f.launches for f in _COUNTED]
+
+
+# CUgraphNodeType's kernel and memcpy nodes (cuda.h).
+_KERNEL_NODES = (0, 1)
+
+
+def kernel_nodes(stream: torch.cuda.Stream) -> int:
+    """The kernel and memcpy nodes of the graph being captured on
+    ``stream``, so far. A block's memcpy nodes copy between device
+    buffers; the card runs them as copy kernels (``memcpy32_post`` in a
+    profiler trace), or on the copy engine in a graph instantiated after
+    the profiler first attached to the process. Memset and event nodes are
+    not counted. Called inside the capture, through ``libcuda``
+    (``cuStreamGetCaptureInfo``, then ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType``; querying the graph under capture is
+    allowed)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    ptr, size_t = ctypes.c_void_p, ctypes.c_size_t
+
+    def check(result: int, call: str) -> None:
+        if result != 0:
+            raise RuntimeError(f"{call} returned CUresult {result}")
+
+    status, capture_id = ctypes.c_int(), ctypes.c_ulonglong()
+    graph, deps, n_deps = ptr(), ptr(), size_t()
+    get_info = cuda.cuStreamGetCaptureInfo_v2
+    get_info.argtypes = [ptr] + [ptr] * 5
+    check(get_info(ptr(stream.cuda_stream), ctypes.byref(status),
+                   ctypes.byref(capture_id), ctypes.byref(graph),
+                   ctypes.byref(deps), ctypes.byref(n_deps)),
+          "cuStreamGetCaptureInfo_v2")
+    if not graph.value:
+        raise RuntimeError("the stream is not capturing a graph")
+    get_nodes, get_type = cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType
+    get_nodes.argtypes, get_type.argtypes = [ptr, ptr, ptr], [ptr, ptr]
+    n = size_t(0)
+    check(get_nodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    check(get_nodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        check(get_type(ptr(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        kernels += kind.value in _KERNEL_NODES
+    return kernels
 
 
 class Graphed:
@@ -114,15 +166,25 @@ class Graphed:
         # NCCL watchdog's, say) do not void it; the autograd engine's
         # launches onto the capturing stream, and NCCL's collectives joined
         # to it, are captured all the same.
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.out = body()
+        with spans.span("graph.capture") as capture:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                with spans.span("graph.capture.body"):
+                    self.out = body()
+                if capture is not None:
+                    with spans.span("graph.capture.count"):
+                        nodes = kernel_nodes(torch.cuda.current_stream())
+                    capture.set(kernel_nodes=nodes)
+                    spans.count("graph.kernel_nodes", nodes)
+        spans.count("graph.captures")
         self.launches = [a - b for a, b in zip(_counts(), before)]
         for f, n in zip(_COUNTED, before):
             f.launches = n
 
     def replay(self):
-        self.graph.replay()
+        with spans.span("graph.replay", device=True):
+            self.graph.replay()
+        spans.count("graph.replays")
         for f, n in zip(_COUNTED, self.launches):
             f.launches += n
         return self.out

@@ -58,6 +58,11 @@ JAX package.
 ``train_model(progress=...)`` narrates one line per validation block on
 stderr (``make_progress_printer``), reading the block's rows on the host.
 
+While ``utils.spans`` records, a training call is one ``job`` span, with
+``train.setup`` (the trainer's construction), one ``train.block`` span per
+block of the loop and ``train.flag_wait`` (the host's wait for a flag)
+under it; ``train/graph.py`` adds the capture and the replays.
+
 Not ported: scan unrolling and the executable cache.
 """
 
@@ -98,6 +103,7 @@ from dpivae_tpu_torch.utils import (
     draw_normals,
     rand,
     resolve_device,
+    spans,
 )
 from dpivae_tpu_torch.utils.annealing import make_schedule
 from dpivae_tpu_torch.utils.early_stopping import (
@@ -493,9 +499,10 @@ class _LaggedFlag:
             self.events[block % 2].record()
 
     def read(self, block: int) -> bool:
-        if self.events is not None:
-            self.events[block % 2].synchronize()
-        return bool(self.host[block % 2])
+        with spans.span("train.flag_wait"):
+            if self.events is not None:
+                self.events[block % 2].synchronize()
+            return bool(self.host[block % 2])
 
 
 def _run_blocks(run, body, generators, graphed: bool, after_block=None):
@@ -509,19 +516,24 @@ def _run_blocks(run, body, generators, graphed: bool, after_block=None):
     flag says every run has stopped (``_LaggedFlag``), or after the last.
     ``after_block(b)`` runs on the host after block b is launched."""
     device = run.device
+    cuda = device.type == "cuda"
     flag = _LaggedFlag(device)
     call = body
     with (SideStream(device) if graphed
           else contextlib.nullcontext()) as stream:
         for block in range(run.n_blocks):
-            if graphed and block == 1:
-                call = Graphed(body, generators, stream).replay
-            run.block_t.fill_(block)
-            flag.record(block, call())
-            if after_block is not None:
-                after_block(block)
-            if block > 0 and flag.read(block - 1):
-                break
+            replayed = graphed and block > 0
+            with spans.span("train.block", cuda and not replayed) as sp:
+                if sp is not None:
+                    sp.set(b=block, graphed=replayed)
+                if graphed and block == 1:
+                    call = Graphed(body, generators, stream).replay
+                run.block_t.fill_(block)
+                flag.record(block, call())
+                if after_block is not None:
+                    after_block(block)
+                if block > 0 and flag.read(block - 1):
+                    break
 
 
 def build_train_fn(config: TrainConfig, case: Case,
@@ -565,8 +577,9 @@ def build_train_fn(config: TrainConfig, case: Case,
         graphed = resolve_cuda_graph(cuda_graph, params.log_sigma_x.device)
         if mesh is not None:
             replicated(mesh, params, dp_axis)
-        run = Trainer(config, case, params, data_train, data_val, lambda_g0,
-                      mesh, dp_axis)
+        with spans.span("train.setup"):
+            run = Trainer(config, case, params, data_train, data_val,
+                          lambda_g0, mesh, dp_axis)
         report = None
         if progress_cb is not None:
             def report(block):
@@ -602,32 +615,35 @@ def train_model(config: TrainConfig, model, case: Case, data_train, data_val,
     (``build_train_fn``): "auto" replays a CUDA graph per validation block
     on CUDA, with a mesh too. Returns (trained params, logs).
     """
-    device = resolve_device(device)
-    if mesh is not None:
-        if mesh.device.type != device.type:
-            raise ValueError(f"the mesh is on {mesh.device}, training on "
-                             f"{device}")
-        device = mesh.device
-    progress = resolve_progress(progress, config, device, mesh)
-    if generator is None:
-        generator = torch.Generator(device=device)
-        if config.use_seed:
-            generator.manual_seed(config.seed)
-        elif mesh is None:
-            generator.seed()
-        else:
-            seed = torch.tensor([torch.Generator().seed() % 2**62],
-                                device=device)
-            generator.manual_seed(int(replicated(mesh, seed)))
-    if params is None:
-        params = model.init(generator, device=device)
-    if params.log_sigma_x.device.type != device.type:
-        raise ValueError(
-            f"params are on {params.log_sigma_x.device}, training on {device}"
-        )
-    train_fn = build_train_fn(config, case, mesh, dp_axis, progress,
-                              cuda_graph)
-    return train_fn(params, generator, data_train, data_val, config.lambda_g0)
+    with spans.job("train_model") as job:
+        if job is not None:
+            job.set(members=1, n_iter=config.n_iter)
+        device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device.type != device.type:
+                raise ValueError(f"the mesh is on {mesh.device}, training "
+                                 f"on {device}")
+            device = mesh.device
+        progress = resolve_progress(progress, config, device, mesh)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            if config.use_seed:
+                generator.manual_seed(config.seed)
+            elif mesh is None:
+                generator.seed()
+            else:
+                seed = torch.tensor([torch.Generator().seed() % 2**62],
+                                    device=device)
+                generator.manual_seed(int(replicated(mesh, seed)))
+        if params is None:
+            params = model.init(generator, device=device)
+        if params.log_sigma_x.device.type != device.type:
+            raise ValueError(f"params are on {params.log_sigma_x.device}, "
+                             f"training on {device}")
+        train_fn = build_train_fn(config, case, mesh, dp_axis, progress,
+                                  cuda_graph)
+        return train_fn(params, generator, data_train, data_val,
+                        config.lambda_g0)
 
 
 # ----------------------------------------------------------------------
@@ -954,8 +970,9 @@ def build_member_train_fn(config: TrainConfig, case: Case,
 
     def train_fn(params, generators, data_train, data_val, lambdas,
                  hyper=None):
-        run = MemberTrainer(config, case, params, data_train, data_val,
-                            lambdas, hyper, mesh, dp_axis)
+        with spans.span("train.setup"):
+            run = MemberTrainer(config, case, params, data_train, data_val,
+                                lambdas, hyper, mesh, dp_axis)
         if len(generators) != run.n_members:
             raise ValueError(f"{len(generators)} generators for "
                              f"{run.n_members} members")
