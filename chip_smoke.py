@@ -11,7 +11,8 @@ Phases; any failure exits non-zero before the result line:
    with nvcc for sm_90a into ``build/dpivae_tpu_torch/`` and prints the
    build time and ptxas's register/shared-memory report, then one line of
    it for the forward's staged (wgmma) path: each instance's registers and
-   spills, and how many ptxas serialized.
+   spills, and how many ptxas serialized; then ``csrc/latent_gauss.cu``
+   (the latent-Gaussian pair), its build time and registers.
 3. Kernels vs plain, on the same CUDA inputs, both timed by CUDA events:
    the fused-MLP forward kernel at the serving shape (512 requests x 512
    MC samples = 262,144 rows x (4 -> 128 -> 32)), the validation shape
@@ -39,6 +40,15 @@ Phases; any failure exits non-zero before the result line:
    encoder (damped_oscillator's S-model widths) on the card with cuDNN's
    TF32 flag at its default, on, against the same module in float64 on
    the CPU (the module in f32 on the CPU printed beside it, not checked).
+   Then the latent-Gaussian pair (``ops.latent.latent_gauss``) against
+   its plain version on the same card tensors, at simple_beam's and
+   damped_oscillator's S models (random weights: their heads, squash and
+   z_x prior) at the training (16 MC x 64 rows) and validation (64 x 512)
+   sizes, and with full-covariance priors: outputs equal bit for bit, the
+   grads of every raw head output within rtol 1e-4 and 1e-4 of the
+   largest magnitude, one forward and one backward launch a call; each
+   timed in a CUDA graph of 20 calls, forward and forward with backward,
+   beside the plain version's and the bytes bound.
 4. Serving path: simple_beam / "dpivae" preset with use_pallas=True at
    full width, random weights from a seed; a Predictor answers requests
    of n_test = 512 points with n_mc_test = 512 MC samples. The forward
@@ -81,7 +91,9 @@ Phases; any failure exits non-zero before the result line:
    directory under build/: "auto" must pick the kernel on this card; the
    forward must launch blocks run x (val_freq + 1) times and the hidden
    kernel blocks run x val_freq times, the blocks run following the stop
-   iteration (the evaluation and the baselines launch neither); every
+   iteration (the evaluation and the baselines launch neither), and the
+   latent-Gaussian pair as often (its forward a step and a validation,
+   its backward a step); every
    logged row up to the stop must be finite; the trained model is held
    against BASELINE.md's anchor of this row (the JAX package's run at the
    reference's scale: stop 12,971, train / val ELBO -1.006 / -1.121, test
@@ -278,7 +290,8 @@ Phases; any failure exits non-zero before the result line:
    ``sweep_sample``, the walls; the member entries' bytes before and
    after an eviction by their bound; and the walls of the study's latents
    stage and the transfer study's predict stages of phases 10 and 12.
-18. Prints a ``{"kernels": [...]}`` line (launches summed over every path),
+18. Prints a ``{"kernels": [...]}`` line (launches summed over every path;
+   for the latent-Gaussian pair, its times at simple_beam's training size),
    the script's wall time and, last, the device line.
 
 Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
@@ -1044,6 +1057,196 @@ def _training(ops, failures, case_name, preset, n_iter):
     return launches, steps_s, (cfg, case, model, params, data_train, data_val)
 
 
+# The latent-Gaussian pair's shapes, (MC samples, rows): a training step's
+# and a validation's in bench.py's workload (16 x 64, 64 x 512).
+LATENT_SIZES = {"training": (16, 64), "validation": (64, 512)}
+LATENT_PEAK_BYTES_PER_S = 3.35e12   # the H100 SXM's HBM3
+LATENT_CALLS = LATENT_REPLAYS = 20
+
+
+def _latent_inputs(case_name, full_priors=False):
+    """The raw head outputs of the case's "dpivae" (S) model at random
+    weights, for LATENT_SIZES' validation rows, with its squash and z_x
+    prior; with ``full_priors``, random tril heads on both priors, the
+    full-covariance case the presets do not build."""
+    from dpivae_tpu_torch import TrainConfig
+    from dpivae_tpu_torch.cases import get_case
+    from dpivae_tpu_torch.train import init_params, setup_model
+    from dpivae_tpu_torch.utils.data import sample_response
+
+    case = get_case(case_name)
+    rows = LATENT_SIZES["validation"][1]
+    cfg = TrainConfig().with_preset(case.presets["dpivae"]).replace(
+        use_seed=True, seed=SEED, n_train=rows)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    data = sample_response(case, gen, rows, sample_dist=case.gt_dist(),
+                           device="cuda")
+    model = setup_model(cfg, case, data, device="cuda")
+    params = init_params(cfg, model, device="cuda")
+    x_t, c_t, y_t = model.transform_inputs(*data[:3])
+    with torch.no_grad():
+        heads = [list(params.encoder.heads(x_t)),
+                 list(params.prior_net_c.heads(c_t)),
+                 list(params.prior_net_y.heads(y_t))]
+    if full_priors:
+        for head in heads[1:]:
+            m = head[0].shape[-1]
+            head[2] = torch.randn(rows, m * m, generator=gen, device="cuda")
+    return model, heads
+
+
+def _latent_args(model, heads, n, rows, seed):
+    """latent_gauss's arguments at (n, rows): the heads' first ``rows``
+    rows as leaves that take grads, and normals from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    enc, prior_c, prior_y = (
+        tuple(None if t is None else t[:rows].clone().requires_grad_()
+              for t in head) for head in heads)
+    eps = torch.randn(n, rows, enc[0].shape[-1], generator=gen,
+                      device="cuda")
+    return (enc, eps, prior_c, prior_y, model.output_transform_zx,
+            model.prior_x)
+
+
+def _latent_run(op, args, upstream):
+    """The op's outputs and the grads of every raw head output under
+    ``upstream`` grads of the outputs."""
+    enc, _, prior_c, prior_y, _, _ = args
+    leaves = [t for h in (enc, prior_c, prior_y) for t in h if t is not None]
+    out = op(*args)
+    return ([t.detach() for t in out],
+            torch.autograd.grad(out, leaves, upstream))
+
+
+def _latent_bytes(n, rows, heads):
+    """(forward, backward) bytes: each input read once and each output
+    written once, float32. Forward: the heads, the normals, the latents
+    and KL_x; backward: the heads, the normals, the upstream grads of the
+    latents and KL_x, and the heads' grads."""
+    head = rows * sum(t.shape[-1] for h in heads for t in h if t is not None)
+    latents = n * rows * heads[0][0].shape[-1]
+    fwd = head + latents + latents + rows
+    bwd = head + latents + latents + rows + head
+    return 4 * fwd, 4 * bwd
+
+
+def _graph_ms(fn) -> float:
+    """Device time of one fn() call, as LATENT_CALLS calls captured into
+    one CUDA graph (the training block's setting) and replayed
+    LATENT_REPLAYS times, by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(LATENT_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(LATENT_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (LATENT_CALLS * LATENT_REPLAYS)
+
+
+def _latent_vs_plain(failures):
+    """The latent-Gaussian kernel pair (``ops.latent.latent_gauss``)
+    against its plain version (``latent_gauss_reference``) on the same
+    card tensors: simple_beam's and damped_oscillator's S models (random
+    weights; their heads, squash and z_x prior), at the training and the
+    validation size, and simple_beam's with full-covariance priors at the
+    training size. The outputs must be equal bit for bit, the grads of
+    every raw head output within GRAD_RTOL and 1e-4 of the largest
+    magnitude (as tests/test_torch_latent_cuda.py, which says why), and
+    each call must launch one forward and one backward. Then both timed,
+    forward and forward with backward, at simple_beam's two sizes and
+    damped_oscillator's training size, beside the bytes bound. Returns the
+    readings by shape."""
+    from dpivae_tpu_torch.ops import latent
+
+    cases = [("simple_beam", False, "training"),
+             ("simple_beam", False, "validation"),
+             ("damped_oscillator", False, "training"),
+             ("damped_oscillator", False, "validation"),
+             ("simple_beam", True, "training")]
+    readings, inputs = {}, {}
+    for i, (case_name, full, size) in enumerate(cases):
+        if (case_name, full) not in inputs:
+            inputs[case_name, full] = _latent_inputs(case_name, full)
+        model, heads = inputs[case_name, full]
+        n, rows = LATENT_SIZES[size]
+        args = _latent_args(model, heads, n, rows, SEED + i)
+        with torch.no_grad():
+            shapes = [t.shape for t in latent.latent_gauss_reference(*args)]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 100 + i)
+        upstream = [torch.randn(s, generator=gen, device="cuda")
+                    for s in shapes]
+        before = (latent.latent_fwd.launches, latent.latent_bwd.launches)
+        got_out, got_grads = _latent_run(latent.latent_gauss, args, upstream)
+        launched = (latent.latent_fwd.launches - before[0],
+                    latent.latent_bwd.launches - before[1])
+        want_out, want_grads = _latent_run(latent.latent_gauss_reference,
+                                           args, upstream)
+        equal = all(torch.equal(a, b) for a, b in zip(got_out, want_out))
+        out_err = max(float((a - b).abs().max())
+                      for a, b in zip(got_out, want_out))
+        grad_err, grads_ok = 0.0, True
+        for a, b in zip(got_grads, want_grads):
+            atol = 1e-4 * float(b.abs().max()) + 1e-30
+            grad_err = max(grad_err, float((a - b).abs().max()))
+            grads_ok &= bool(torch.allclose(a, b, rtol=GRAD_RTOL, atol=atol))
+        what = (f"{case_name} S {size} {n} x {rows}"
+                + (", full-covariance priors" if full else ""))
+        print(f"latent-Gaussian pair vs plain, {what}: outputs "
+              f"{'equal' if equal else 'DIFFER'} (max_abs_err "
+              f"{out_err:.3e}); head grads max_abs_err {grad_err:.3e} "
+              f"(rtol {GRAD_RTOL}, atol 1e-4 of the largest) "
+              f"{'ok' if grads_ok else 'MISMATCH'}; launches {launched}")
+        if not (equal and grads_ok):
+            failures.append(f"latent-Gaussian pair, {what}: outputs equal "
+                            f"{equal}, grads within tolerance {grads_ok}")
+        if launched != (1, 1):
+            failures.append(f"latent-Gaussian pair, {what}: launches "
+                            f"{launched}, expected one forward and one "
+                            f"backward")
+        if full or (case_name, size) == ("damped_oscillator", "validation"):
+            continue
+        row = {"max_abs_err": grad_err}
+        fwd_bytes, bwd_bytes = _latent_bytes(n, rows, heads)
+        row["fwd_bound_ms"] = fwd_bytes / LATENT_PEAK_BYTES_PER_S * 1e3
+        row["bwd_bound_ms"] = bwd_bytes / LATENT_PEAK_BYTES_PER_S * 1e3
+        leaves = [t for h in (args[0], args[2], args[3]) for t in h
+                  if t is not None]
+        for which, op in (("kernel", latent.latent_gauss),
+                          ("plain", latent.latent_gauss_reference)):
+            def forward(op=op):
+                with torch.no_grad():
+                    return op(*args)
+
+            def both(op=op):
+                return torch.autograd.grad(op(*args), leaves, upstream)
+
+            row[f"{which}_fwd_ms"] = _graph_ms(forward)
+            row[f"{which}_fwd_bwd_ms"] = _graph_ms(both)
+        row["kernel_bwd_ms"] = row["kernel_fwd_bwd_ms"] - row["kernel_fwd_ms"]
+        row["plain_bwd_ms"] = row["plain_fwd_bwd_ms"] - row["plain_fwd_ms"]
+        readings[f"{case_name} {size}"] = row
+        print(f"latent-Gaussian pair timed in a CUDA graph, {what}: forward "
+              f"kernel {row['kernel_fwd_ms']:.5f} ms, plain "
+              f"{row['plain_fwd_ms']:.5f} ms, bound {row['fwd_bound_ms']:.5f}"
+              f" ms (bytes at 3.35 TB/s); forward with backward kernels "
+              f"{row['kernel_fwd_bwd_ms']:.5f} ms, plain "
+              f"{row['plain_fwd_bwd_ms']:.5f} ms; backward bound "
+              f"{row['bwd_bound_ms']:.5f} ms")
+    return readings
+
+
 def _cnn_encoder_on_card(failures):
     """The Conv1d encoder at damped_oscillator's S-model widths (9 latents
     over nd_x 64), on the card with cuDNN's TF32 flag at its default (on),
@@ -1238,11 +1441,15 @@ def _single_run(ops, failures, card):
     from dpivae_tpu_torch.serving import SAMPLE_SLOTS, Predictor, load_predictor
     from dpivae_tpu_torch.train.checkpoint import load_model
 
+    from dpivae_tpu_torch.ops import latent
+
     phase_t0 = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=root) as out:
         ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        latent_before = (latent.latent_fwd.launches,
+                         latent.latent_bwd.launches)
         t0 = time.perf_counter()
         with _EpochRecorder(baselines) as mlp_epochs:
             run = single_run.main([
@@ -1251,6 +1458,8 @@ def _single_run(ops, failures, card):
                 "--export_serving"])
         wall = time.perf_counter() - t0
         launches = (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches)
+        latent_launches = (latent.latent_fwd.launches - latent_before[0],
+                           latent.latent_bwd.launches - latent_before[1])
         cfg = run.config
         blocks = _blocks_run(run.logs, cfg)
         want = _block_launches(blocks, cfg)
@@ -1270,6 +1479,15 @@ def _single_run(ops, failures, card):
             failures.append(f"single run: launches {launches}, expected "
                             f"{want} for {blocks} blocks, stopped at "
                             f"{run.logs.stop_iter}")
+        # The latent pair launches as the fused MLP does: its forward once
+        # a step and once a validation, its backward once a step.
+        print(f"single run: launches latent_gauss_fwd {latent_launches[0]}, "
+              f"latent_gauss_bwd {latent_launches[1]} (expected {want[0]}, "
+              f"{want[1]}: {cfg.val_freq + 1} and {cfg.val_freq} a block)")
+        if latent_launches != want:
+            failures.append(f"single run: latent-Gaussian launches "
+                            f"{latent_launches}, expected {want} for "
+                            f"{blocks} blocks")
         _against_anchor(run, failures, card)
         _check_csvs(run.paths["metrics"], failures)
 
@@ -3821,6 +4039,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dpivae_tpu_torch.ops import fused_mlp as ops
+    from dpivae_tpu_torch.ops import latent
 
     card = _card()
     print(card)
@@ -3837,6 +4056,13 @@ def main() -> int:
                 or "Compiling entry" in line or "C75" in line):
             print(f"  ptxas: {line.strip()}")
     print(_staged_ptxas_summary(log))
+    t0 = time.perf_counter()
+    lib_path, log = ops.build_library(latent.SOURCE, latent.NVCC_FLAGS)
+    print(f"built {os.path.relpath(lib_path)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     lib = ops._library()
@@ -3852,6 +4078,7 @@ def main() -> int:
     _paths_vs_plain(ops, failures)
     _against_f64(ops)
     _cnn_encoder_on_card(failures)
+    latent_readings = _latent_vs_plain(failures)
 
     # The main path of the first slices: simple_beam / "dpivae" (S model,
     # 4 -> 128 -> 32).
@@ -3968,6 +4195,7 @@ def main() -> int:
     print(f"chip_smoke wall ({card}): "
           f"{time.perf_counter() - script_t0:.1f} s (limit 1,200 s)")
     serving, train_hidden = results["serving"], hidden["training"]
+    latent_train = latent_readings["simple_beam training"]
     source = "dpivae_tpu_torch/csrc/fused_mlp.cu"
     print(json.dumps({"kernels": [{
         "name": "fused_mlp_fwd",
@@ -3998,7 +4226,22 @@ def main() -> int:
         "bound_ms": train_hidden["bound_ms"],
         "bound_by": train_hidden["bound_by"],
         "library_ms": train_hidden["library_ms"],
-    }]}))
+    }, *({
+        "name": f"latent_gauss_{way}",
+        "route": "cuda",
+        "source": "dpivae_tpu_torch/csrc/latent_gauss.cu",
+        # No kernel there: XLA fuses the loss's latent algebra.
+        "replaces": "dpivae_tpu/models/vae.py:323 (fused by XLA)",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in latent_readings.values()),
+        "ms": latent_train[f"kernel_{way}_ms"],
+        "plain_ms": latent_train[f"plain_{way}_ms"],
+        "bound_ms": latent_train[f"{way}_bound_ms"],
+        "bound_by": "bytes at 3.35 TB/s",
+        "library_ms": None,
+    } for way, launches in (("fwd", latent.latent_fwd.launches),
+                            ("bwd", latent.latent_bwd.launches)))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

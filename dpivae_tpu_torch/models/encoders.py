@@ -3,7 +3,8 @@ dpivae_tpu/models/encoders.py:20-206).
 
 A head is a trunk, the dense ReLU stack (``FactorizedNN``, ``FullCovNN``)
 or the Conv1d stack (``CNNEncoder``), then loc and log-sigma heads, and for
-a full covariance a strictly-lower-tril head. The numeric clamps (±50 loc,
+a full covariance a strictly-lower-tril head; ``gaussian_params`` turns the
+heads' raw outputs into (loc, scale_tril). The numeric clamps (±50 loc,
 [-7, 3] log-sigma, ±20 tril) and the 1e-8 diagonal jitter are load-bearing
 for training stability and equal the JAX package's.
 """
@@ -77,17 +78,32 @@ class GaussianHead(nn.Module):
         self.f_cov = (linear(width, n_latent * n_latent, generator, device)
                       if full_cov else None)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def heads(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The heads' raw outputs (mean, log-sigma, tril or None), before
+        ``gaussian_params``."""
         h = self.trunk(x)
-        loc = torch.clamp(self.f_mean(h), -50.0, 50.0)
-        sigma = torch.exp(torch.clamp(self.f_sigma(h), -7.0, 3.0))
-        diag = torch.diag_embed(sigma + JITTER)
-        if self.f_cov is None:
-            return loc, diag
-        n = self.n_latent
-        L = torch.clamp(self.f_cov(h), -20.0, 20.0)
-        L = torch.tril(L.reshape(*x.shape[:-1], n, n), diagonal=-1)
-        return loc, L + diag
+        return (self.f_mean(h), self.f_sigma(h),
+                None if self.f_cov is None else self.f_cov(h))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return gaussian_params(*self.heads(x))
+
+
+def gaussian_params(mean: torch.Tensor, log_sigma: torch.Tensor,
+                    cov: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loc, scale_tril) from a head's raw outputs: the clamps, the exp,
+    the jitter and the strict-lower tril (the diagonal alone without
+    ``cov``)."""
+    loc = torch.clamp(mean, -50.0, 50.0)
+    sigma = torch.exp(torch.clamp(log_sigma, -7.0, 3.0))
+    diag = torch.diag_embed(sigma + JITTER)
+    if cov is None:
+        return loc, diag
+    n = mean.shape[-1]
+    L = torch.clamp(cov, -20.0, 20.0)
+    L = torch.tril(L.reshape(*mean.shape[:-1], n, n), diagonal=-1)
+    return loc, L + diag
 
 
 class FactorizedNN(GaussianHead):

@@ -43,6 +43,7 @@ from dpivae_tpu_torch.models.encoders import (
     FullCovNN,
     gaussian_encoder_sample,
 )
+from dpivae_tpu_torch.ops import latent
 from dpivae_tpu_torch.ops.mvn import mvn_log_prob
 from dpivae_tpu_torch.ops.remat import recompute
 from dpivae_tpu_torch.utils import (
@@ -443,17 +444,18 @@ class DPIVAE:
             zc, _ = gaussian_encoder_sample(loc_c, tril_c, n,
                                             eps=noise["z_prior"])
 
-        # Raw physical covariates concatenated to z_x, tiled over the MC
-        # axis; idx_c_phys == () means no-op. The columns are stacked from
-        # views: indexing with a list would copy an index tensor from the
-        # host on every call, which a CUDA graph cannot capture.
-        if self.idx_c_phys:
-            c_phys = torch.stack([c[..., i] for i in self.idx_c_phys], dim=-1)
-            c_phys = c_phys.expand(n, *c_phys.shape)
-            zx_in = torch.cat((zx, c_phys), dim=-1)
-        else:
-            zx_in = zx
-        return zx, zc, zy, dens_z, zx_in
+        return zx, zc, zy, dens_z, self._decoder_x_input(zx, c, n)
+
+    def _decoder_x_input(self, zx, c, n: int):
+        """z_x with the raw physical covariates concatenated, tiled over the
+        MC axis; idx_c_phys == () means z_x itself. The columns are stacked
+        from views: indexing with a list would copy an index tensor from
+        the host on every call, which a CUDA graph cannot capture."""
+        if not self.idx_c_phys:
+            return zx
+        c_phys = torch.stack([c[..., i] for i in self.idx_c_phys], dim=-1)
+        c_phys = c_phys.expand(n, *c_phys.shape)
+        return torch.cat((zx, c_phys), dim=-1)
 
     def forward(self, params: DPIVAEParams, x, c, cond: bool = False,
                 n: int = 1, grl_alpha=None, *, generator=None,
@@ -484,6 +486,12 @@ class DPIVAE:
         terms run over n/mc_chunk equal MC chunks, summed and divided by n
         at the end: the same MC means up to summation order. n must be a
         multiple of mc_chunk.
+
+        The S model's latent algebra (the encoder sample, the squash, the
+        three priors' densities and KL_x) runs as one op,
+        ``ops.latent.latent_gauss`` (``_latents_s``): its CUDA kernels on
+        the card, its plain version on the CPU and under ``torch.func``
+        transforms.
         """
         mc = self.mc_chunk if self.mc_chunk is not None and self.mc_chunk < n else n
         if n % mc:
@@ -491,19 +499,25 @@ class DPIVAE:
                 f"mc_chunk={self.mc_chunk} must divide the MC sample "
                 f"count n={n} (equal chunks keep the MC mean exact)"
             )
-        zx, zc, zy, dens_z, zx_in = self._encode_latents(
-            params, x, c, False, n, generator=generator, noise=noise
-        )
+        if self.model_type == "S":
+            zx, zc, zy, KL_x = self._latents_s(params, x, c, y, n,
+                                               generator, noise)
+            zx_in = self._decoder_x_input(zx, c, n)
+        else:
+            zx, zc, zy, dens_z, zx_in = self._encode_latents(
+                params, x, c, False, n, generator=generator, noise=noise
+            )
 
-        # Priors: fixed marginal on z_x, learned full-cov Gaussians on z_c, z_y
-        loc_c, tril_c, loc_y, tril_y = self.prior_net(params, c, y=y)
-        log_prior_zx = torch.sum(self.prior_x.log_prob(zx), dim=-1)
-        log_prior_zc = mvn_log_prob(zc, loc_c, tril_c)
-        log_prior_zy = mvn_log_prob(zy, loc_y, tril_y)
-        log_prior_z = log_prior_zx + log_prior_zc + log_prior_zy
+            # The P model's priors: fixed marginal on z_x, learned full-cov
+            # Gaussians on z_c, z_y
+            loc_c, tril_c, loc_y, tril_y = self.prior_net(params, c, y=y)
+            log_prior_zx = torch.sum(self.prior_x.log_prob(zx), dim=-1)
+            log_prior_zc = mvn_log_prob(zc, loc_c, tril_c)
+            log_prior_zy = mvn_log_prob(zy, loc_y, tril_y)
+            log_prior_z = log_prior_zx + log_prior_zc + log_prior_zy
 
-        # Joint-latent MC KL estimate
-        KL_x = torch.mean(dens_z - log_prior_z, dim=0)
+            # Joint-latent MC KL estimate
+            KL_x = torch.mean(dens_z - log_prior_z, dim=0)
         KL_c = torch.zeros_like(KL_x)
         KL_y = torch.zeros_like(KL_x)
 
@@ -530,6 +544,25 @@ class DPIVAE:
 
         loss = beta_x * KL_x - alpha_x * R_x - alpha_c * R_c - alpha_y * R_y - reg
         return loss, KL_x, KL_c, KL_y, R_x, R_c, R_y, reg
+
+    def _latents_s(self, params: DPIVAEParams, x, c, y, n: int,
+                   generator, noise: Noise):
+        """The S model's (zx, zc, zy, KL_x) from its three heads' raw
+        outputs, through ``ops.latent.latent_gauss``. Where a
+        ``torch.func`` transform wraps the tensors (the sweeps'
+        ``vmap(grad(...))``) or a trace runs, through its plain version
+        ``latent_gauss_reference``, which the transforms take."""
+        x_t, c_t, y_t = self.transform_inputs(x=x, c=c, y=y)
+        if noise is None:
+            noise = draw_normals(self.noise_draws(observations=False),
+                                 generator, (n, *x.shape[:-1]), x.device)
+        wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+        plain = (torch.compiler.is_compiling() or wrapped(x)
+                 or wrapped(params.log_sigma_x))
+        op = latent.latent_gauss_reference if plain else latent.latent_gauss
+        return op(params.encoder.heads(x_t), noise["z"],
+                  params.prior_net_c.heads(c_t), params.prior_net_y.heads(y_t),
+                  self.output_transform_zx, self.prior_x)
 
     def sample(self, params: DPIVAEParams, x, c, cond: bool = False,
                n: int = 1, grl_alpha=None, *, generator=None,

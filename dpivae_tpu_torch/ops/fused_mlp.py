@@ -158,14 +158,16 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(source: Path = SOURCE) -> Tuple[Path, str]:
-    """Compile ``source`` (``csrc/fused_mlp.cu``) into a shared library,
-    unless one built from the same source and flags exists. Returns
-    (library path, compiler output; empty when nothing was built)."""
+def build_library(source: Path = SOURCE,
+                  flags: Tuple[str, ...] = NVCC_FLAGS) -> Tuple[Path, str]:
+    """Compile ``source`` (``csrc/fused_mlp.cu``, or another of the
+    package's CUDA sources) with ``flags`` into a shared library, unless
+    one built from the same source and flags exists. Returns (library
+    path, compiler output; empty when nothing was built)."""
     digest = hashlib.sha256(
-        Path(source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        Path(source).read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libfused_mlp_{digest}.so"
+    lib_path = BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
     if lib_path.exists():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -173,7 +175,7 @@ def build_library(source: Path = SOURCE) -> Tuple[Path, str]:
     # half-written library.
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [_nvcc(), *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -35,9 +35,10 @@ eager, block, before any capture. A replay then runs the all-reduce
 with the rest of the block, on every rank, each rank replaying its own
 graph.
 
-The fused-MLP wrappers count their launches in Python
-(``fused_mlp.launches``, ``fused_mlp_hidden.launches``), which a replay
-does not run. ``Graphed`` takes back what the capture added to the counts
+The kernels' wrappers count their launches in Python
+(``fused_mlp.launches``, ``fused_mlp_hidden.launches``,
+``latent.latent_fwd.launches``, ``latent.latent_bwd.launches``), which a
+replay does not run. ``Graphed`` takes back what the capture added to the counts
 and adds it again on every replay, so the counts stay those of an eager
 run.
 
@@ -59,9 +60,11 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from dpivae_tpu_torch.ops import fused_mlp as _ops
+from dpivae_tpu_torch.ops import latent as _latent
 from dpivae_tpu_torch.utils import spans
 
-_COUNTED = (_ops.fused_mlp, _ops.fused_mlp_hidden)
+_COUNTED = (_ops.fused_mlp, _ops.fused_mlp_hidden, _latent.latent_fwd,
+            _latent.latent_bwd)
 
 
 def resolve_cuda_graph(cuda_graph, device: Optional[torch.device],

@@ -1,8 +1,9 @@
 """The graphed training loop on the card against the eager loop
 (``cuda_graph=False``), from the same seeds and weights: ``train_model``
 with annealed schedules (sigmoid λ, cyclical β_x) and the fused-MLP
-kernels (simple_beam's S model and bridge's P model), an early stop that
-latches under the graph, a partial last block, and
+kernels (simple_beam's S model, whose loss runs the latent-Gaussian
+kernels too, and bridge's P model, which keeps plain PyTorch there), an
+early stop that latches under the graph, a partial last block, and
 ``build_member_train_fn`` (through ``train_sweep``) with per-member early
 stops and with ``remat_decode``. Rows, params, stop iterations and the
 generator's final state must be equal (max_abs_err 0): a replay of the
@@ -25,6 +26,7 @@ import torch
 from dpivae_tpu_torch import TrainConfig
 from dpivae_tpu_torch.cases import get_case
 from dpivae_tpu_torch.ops import fused_mlp as ops
+from dpivae_tpu_torch.ops import latent
 from dpivae_tpu_torch.sweep import train_sweep
 from dpivae_tpu_torch.train import init_params, setup_model, train_model
 from dpivae_tpu_torch.utils.data import sample_response
@@ -59,13 +61,15 @@ def _single(device, case_name="simple_beam", preset="dpivae", **over):
     params = init_params(cfg, model, device=device)
 
     def run(cuda_graph):
-        ops.fused_mlp.launches = ops.fused_mlp_hidden.launches = 0
+        counted = (ops.fused_mlp, ops.fused_mlp_hidden, latent.latent_fwd,
+                   latent.latent_bwd)
+        for f in counted:
+            f.launches = 0
         g = torch.Generator(device=device).manual_seed(1)
         out = train_model(cfg, model, case, data_train, data_val,
                           params=params, generator=g, device=device,
                           cuda_graph=cuda_graph)
-        return (out, (ops.fused_mlp.launches, ops.fused_mlp_hidden.launches),
-                g.get_state())
+        return out, tuple(f.launches for f in counted), g.get_state()
 
     return cfg, run
 
@@ -87,12 +91,16 @@ def _equal(got, want):
 @pytest.mark.parametrize("case_name, preset", [
     ("simple_beam", "dpivae"), ("bridge", "DPIVAE-A")])
 def test_train_model_graph_equals_eager(device, case_name, preset):
-    """The S model and the P model with a physical covariate."""
+    """The S model and the P model with a physical covariate. The S
+    model's blocks launch the latent-Gaussian kernels, eager and in the
+    five replays alike; the P model's none."""
     cfg, run = _single(device, case_name, preset)
     graphed = run("auto")
     _equal(graphed, run(False))
     n = cfg.n_iter
-    assert graphed[1] == (n + n // cfg.val_freq, n)
+    steps = (n + n // cfg.val_freq, n)
+    assert graphed[1] == steps + (steps if case_name == "simple_beam"
+                                  else (0, 0))
     lam = graphed[0][1].train[:, 8]
     assert len(torch.unique(lam)) > 10
 
@@ -146,7 +154,7 @@ def test_train_model_early_stop_under_the_graph(device, monkeypatch):
     assert (counted.captures, counted.replays, counted.reads) == (
         1, blocks - 1, blocks - 1)
     vf = cfg.val_freq
-    assert graphed[1] == (blocks * (vf + 1), blocks * vf)
+    assert graphed[1] == (blocks * (vf + 1), blocks * vf) * 2
     _equal(graphed, run(False))
 
 
@@ -157,7 +165,7 @@ def test_train_model_partial_block_under_the_graph(device):
     cfg, run = _single(device, n_iter=55)
     graphed = run("auto")
     assert graphed[0][1].stop_iter == 55
-    assert graphed[1] == (6 * 11, 60)
+    assert graphed[1] == (6 * 11, 60) * 2
     _equal(graphed, run(False))
 
 
