@@ -51,6 +51,7 @@ from dpivae_tpu_torch.utils import (
     DeviceLike,
     draw_normals,
     resolve_device,
+    spans,
 )
 from dpivae_tpu_torch.utils.distributions import MarginalDistribution
 
@@ -491,7 +492,10 @@ class DPIVAE:
         three priors' densities and KL_x) runs as one op,
         ``ops.latent.latent_gauss`` (``_latents_s``): its CUDA kernels on
         the card, its plain version on the CPU and under ``torch.func``
-        transforms.
+        transforms. The P model's (three encoder samples and densities)
+        runs in plain PyTorch. Each composition the loss runs in plain
+        PyTorch in place of the kernels counts ``latent.plain``
+        (``utils/spans.py``).
         """
         mc = self.mc_chunk if self.mc_chunk is not None and self.mc_chunk < n else n
         if n % mc:
@@ -504,6 +508,7 @@ class DPIVAE:
                                                generator, noise)
             zx_in = self._decoder_x_input(zx, c, n)
         else:
+            spans.count("latent.plain", model_type="P")
             zx, zc, zy, dens_z, zx_in = self._encode_latents(
                 params, x, c, False, n, generator=generator, noise=noise
             )
@@ -559,6 +564,8 @@ class DPIVAE:
         wrapped = torch._C._functorch.is_functorch_wrapped_tensor
         plain = (torch.compiler.is_compiling() or wrapped(x)
                  or wrapped(params.log_sigma_x))
+        if plain:
+            spans.count("latent.plain", model_type="S")
         op = latent.latent_gauss_reference if plain else latent.latent_gauss
         return op(params.encoder.heads(x_t), noise["z"],
                   params.prior_net_c.heads(c_t), params.prior_net_y.heads(y_t),

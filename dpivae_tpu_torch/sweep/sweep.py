@@ -24,7 +24,8 @@ named by a digest of the sweep's identity, as in the JAX package
 another sweep's. While ``utils.spans`` records, a sweep is one ``job``
 span and each chunk a ``sweep.chunk`` span, with ``sweep.member_starts``
 (the members' generators, data and initial weights) and the chunk's
-training under it.
+training under it; ``train_sweep_data``'s copy of the given datasets to
+host arrays is a ``sweep.member_data`` span.
 
 With a ``mesh`` (``parallel.make_mesh``) the members are split over its
 ``member_axis`` ("sweep"), as in the JAX package: the trainers pad them
@@ -796,8 +797,13 @@ def train_sweep_data(
         as_np = lambda a: (a.detach().cpu().numpy()
                            if isinstance(a, torch.Tensor)
                            else np.asarray(a, np.float32))
-        data_train = tuple(as_np(a) for a in data_train[:3])
-        data_val = tuple(as_np(a) for a in data_val[:3])
+        with spans.span("sweep.member_data") as sp:
+            data_train = tuple(as_np(a) for a in data_train[:3])
+            data_val = tuple(as_np(a) for a in data_val[:3])
+            nbytes = sum(a.nbytes for a in (*data_train, *data_val))
+            if sp is not None:
+                sp.set(bytes=nbytes, members=n_members)
+            spans.count("sweep.member_data_bytes", nbytes)
         for a in (*data_train, *data_val):
             if a.shape[0] != n_members:
                 raise ValueError("data member axis must match len(lambdas)")

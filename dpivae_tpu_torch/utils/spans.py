@@ -20,6 +20,8 @@ clock read, no CUDA event. To see where a training call's time goes::
   span, so every span of one training call shares it (None outside a
   job).
 - ``"counters"``: name -> count.
+- ``"counter_attrs"``: name -> ``[(attrs, count), ...]``, the shares of
+  the counters counted with attributes.
 - ``"device"``: span id -> ``(t0_ns, t1_ns)`` for the spans that record a
   CUDA event pair: when the stream reached the span's start and its end,
   from the first event recorded in the same job. The pairs are read at
@@ -53,6 +55,15 @@ What is recorded (names as in ``out``):
 - counters ``graph.captures``, ``graph.replays``, ``graph.kernel_nodes``
   (the kernel and memcpy nodes of every graph captured, which the card
   runs as kernels: ``train/graph.py`` ``kernel_nodes``).
+- ``sweep.member_data`` (attrs ``bytes``, ``members``): ``train_sweep_data``
+  copying the given per-member datasets to host arrays; counter
+  ``sweep.member_data_bytes``, the bytes of those arrays.
+- counters ``latent.fused.fwd`` / ``latent.fused.bwd`` (a launch of the
+  latent kernels, ``ops/latent.py``) and ``latent.plain`` (attr
+  ``model_type``): a latent-Gaussian composition the loss runs in plain
+  PyTorch, the P model's always and the S model's under ``torch.func``
+  transforms and traces. All three count where the host launches the
+  work: eager blocks and captures, not replays.
 
 A recording is one per process at a time; spans opened on several threads
 nest per thread.
@@ -105,6 +116,7 @@ class Recording:
     def __init__(self):
         self.spans = []
         self.counters = {}
+        self.counter_attrs = {}
         self.pairs = []
         self.anchors = [_anchor()]
         self.ids = itertools.count(1)
@@ -120,7 +132,11 @@ class Recording:
             device[sid] = (round(first.elapsed_time(start) * 1e6),
                            round(first.elapsed_time(end) * 1e6))
         return {"spans": [tuple(row) for row in self.spans],
-                "counters": dict(self.counters), "device": device,
+                "counters": dict(self.counters),
+                "counter_attrs": {name: [(dict(key), n) for key, n in
+                                         by.items()]
+                                  for name, by in self.counter_attrs.items()},
+                "device": device,
                 "anchors": self.anchors + [_anchor()]}
 
 
@@ -186,13 +202,18 @@ def job(entry: str):
     return sp
 
 
-def count(name: str, n: int = 1) -> None:
-    """Adds ``n`` to the counter ``name`` while recording."""
+def count(name: str, n: int = 1, **attrs) -> None:
+    """Adds ``n`` to the counter ``name`` while recording, and with
+    ``attrs`` to its share under those attributes."""
     rec = _REC
     if rec is None:
         return
     with rec.lock:
         rec.counters[name] = rec.counters.get(name, 0) + n
+        if attrs:
+            by = rec.counter_attrs.setdefault(name, {})
+            key = tuple(sorted(attrs.items()))
+            by[key] = by.get(key, 0) + n
 
 
 @contextlib.contextmanager

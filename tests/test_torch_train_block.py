@@ -10,7 +10,8 @@ entry and break-point states put back per member from the host. Params
 and logs must be equal bit for bit, in runs that stop at the first block
 a stop can latch at (the second validation: the first one always
 improves on an infinite best), at a later block, not at all, and in a
-partial last block (``n_iter`` 55 with ``val_freq`` 10).
+partial last block (``n_iter`` 55 with ``val_freq`` 10), with and without
+a stop in it.
 
 Then the block body under the host-read guard of
 tests/test_torch_train_graph.py, as a CUDA graph captures it, with and
@@ -165,16 +166,56 @@ def _per_step_run(cfg, params, data_train, data_val, generator):
     return params, train, val, stop_iter, live_blocks
 
 
-@pytest.mark.parametrize("over, stop_block", [
-    (dict(n_iter=40, **FAST, seed=2), 1),
-    (dict(n_iter=80, **FAST, seed=0), 4),
+def _stop_block(val_losses, cfg):
+    """The block at which the host's early stop first latches over
+    ``val_losses``, or None."""
+    state = jax_es.early_stop_init()
+    for block, loss in enumerate(val_losses):
+        state = _host_stop(state, loss, cfg)
+        if bool(state.stopped):
+            return block
+    return None
+
+
+def _stopping_in_last_block(cfg):
+    """``cfg`` with a seed and an ``n_iter`` whose last block is partial
+    and holds the run's stop: the per-step loop's validations over six
+    blocks without a stop, then ``n_iter`` 5 steps into the block at which
+    the host's stop first latches over them. The schedules are constant,
+    so the run up to there does not depend on ``n_iter``. Which block a
+    stop lands in rests on the last bits of the CPU's reductions, so it is
+    read from the run, not fixed."""
+    vf = cfg.val_freq
+    for seed in range(cfg.seed, cfg.seed + 4):
+        free = cfg.replace(seed=seed, patience=10 ** 9, n_iter=6 * vf)
+        data_train, data_val = _data(free, seed)
+        model = setup_model(free, CASE, data_train, device="cpu")
+        params = model.init(torch.Generator().manual_seed(seed + 1),
+                            device="cpu")
+        val = _per_step_run(free, params, data_train, data_val,
+                            torch.Generator().manual_seed(2))[2][:, 0]
+        block = _stop_block(val, cfg)
+        if block is not None:
+            return cfg.replace(seed=seed, n_iter=block * vf + 5)
+    raise AssertionError("no run stops within six blocks")
+
+
+@pytest.mark.parametrize("over, stop", [
+    (dict(n_iter=40, **FAST, seed=2), "block-1"),
+    (dict(n_iter=80, **FAST, seed=0), "later"),
     (dict(n_iter=40), None),
     (dict(n_iter=55), None),
-    (dict(n_iter=55, **FAST, seed=4), 5),
+    (dict(n_iter=55, **FAST, seed=4, lambda_annealing=None), "last"),
 ], ids=["stop-block-1", "stop-later", "no-stop", "partial-block",
         "partial-block-stop"])
-def test_block_loop_equals_per_step_loop(over, stop_block):
+def test_block_loop_equals_per_step_loop(over, stop):
+    """``stop`` is where the per-step loop's own stop lands: at block 1;
+    after block 1 and before the last block; in the last block, a partial
+    one (the seed and ``n_iter`` found for it, ``_stopping_in_last_block``);
+    nowhere (None)."""
     cfg = _cfg(**over)
+    if stop == "last":
+        cfg = _stopping_in_last_block(cfg)
     data_train, data_val = _data(cfg, cfg.seed)
     model = setup_model(cfg, CASE, data_train, device="cpu")
     params = model.init(torch.Generator().manual_seed(cfg.seed + 1),
@@ -187,8 +228,16 @@ def test_block_loop_equals_per_step_loop(over, stop_block):
     n_blocks = -(-cfg.n_iter // cfg.val_freq)
     assert logs.stop_iter == stop_iter
     assert int(logs.val_active.sum()) == live_blocks
-    assert live_blocks == (n_blocks if stop_block is None
-                           else stop_block + 1)
+    stopped = stop_iter < cfg.n_iter
+    if stop is None:
+        assert not stopped and live_blocks == n_blocks
+    elif stop == "block-1":
+        assert stopped and live_blocks == 2
+    elif stop == "later":
+        assert stopped and 2 < live_blocks < n_blocks
+    else:
+        assert cfg.n_iter % cfg.val_freq
+        assert stopped and live_blocks == n_blocks
     assert _equal(logs.train, train) and _equal(logs.val, val)
     assert torch.equal(logs.train_active, torch.arange(cfg.n_iter)
                        < stop_iter)
